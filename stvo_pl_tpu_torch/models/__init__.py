@@ -1,0 +1,1 @@
+"""Port of stvo_pl_tpu.models."""

@@ -1,0 +1,56 @@
+"""The CUDA kernels against their plain PyTorch versions on the card.
+
+Marked `gpu`: each test skips unless a CUDA device is present (decided
+inside the test, so every worker collects the same tests).  Run on a
+machine with a card with
+`pytest --noconftest -m gpu tests/test_torch_kernels_cuda.py` (the shared
+conftest imports jax);
+`python3 chip_smoke.py` makes the same checks at the main path's shapes."""
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(2, 97, 150), (3, 80, 256),
+                                   (16, 214, 709)])
+def test_fast_pack_kernel_equals_plain(cuda, shape):
+    from stvo_pl_tpu_torch.ops import fast_kernel
+    g = torch.Generator(device=cuda).manual_seed(0)
+    img = torch.rand(shape, generator=g, device=cuda) * 255
+    before = fast_kernel.fast_pack.launches
+    k = fast_kernel.fast_pack(img, 19)
+    p = fast_kernel.fast_pack_plain(img, 19)
+    torch.cuda.synchronize()
+    assert fast_kernel.fast_pack.launches == before + 1
+    assert torch.equal(k, p)
+    assert int((k > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("patch,dtype", [(33, torch.float32),
+                                         ((1, 64), torch.int32),
+                                         ((5, 7), torch.float32)])
+def test_extract_patches_kernel_equals_plain(cuda, patch, dtype):
+    from stvo_pl_tpu_torch.ops import patches
+    g = torch.Generator(device=cuda).manual_seed(1)
+    img = torch.rand((4, 120, 300), generator=g, device=cuda) * 255
+    if dtype == torch.int32:
+        img = img.view(torch.int32)
+    y0 = torch.randint(-4, 110, (4, 77), generator=g, device=cuda,
+                       dtype=torch.int32)
+    x0 = torch.randint(-4, 290, (4, 77), generator=g, device=cuda,
+                       dtype=torch.int32)
+    k = patches.extract_patches(img, y0, x0, patch)
+    p = patches.extract_patches_plain(img, y0, x0, patch)
+    torch.cuda.synchronize()
+    assert k.dtype == img.dtype and torch.equal(k, p)
