@@ -3,12 +3,14 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from stvo_pl_tpu_torch/csrc, holds each kernel
-against its plain PyTorch version at the shapes of the main path, then
-drives the points-only VO step (parallel.batched.vo_step_batched) over
-8 distinct synthetic KITTI-sized sequences (1226x370, 26 frames) on the
-card and checks the trajectories.  Every phase prints one JSON line; any
-failed check exits non-zero.  The last three lines are the kernel table,
-the card's name and power limit, and the result line.
+(FAST pack, patch gather, LSD run pack) against its plain PyTorch version
+at the shapes of the main path, then drives the default point + line VO
+step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
+synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
+checks the trajectories, and the points-only step over the first 6 frames
+of the same sequences.  Every phase prints one JSON line; any failed check
+exits non-zero.  The last three lines are the kernel table, the card's
+name and power limit, and the result line.
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.
@@ -17,6 +19,7 @@ JAX.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the float32 rate
-# outside the tensor cores.  Used for the least-time bounds.
+# outside the tensor cores.  Used for the least-time bounds; 32-bit integer
+# operations are counted against the same rate (the card issues them no
+# faster), so an integer kernel's bound is a lower one.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # FAST response operations per pixel in the reference's shared-subtree
@@ -33,12 +38,20 @@ PEAK_F32_OPS_PER_S = 67e12
 # arc min/max, 2 x 15 arc accumulations, 2 for the final max.
 FAST_OPS_PER_PIXEL = 16 + 2 * 23 * 2 + 2 * 16 * 2 + 2 * 15 + 2
 
+# Run-pack integer operations per pixel of the padded canvas and
+# direction, in the cheapest sequential form of the function: bit extract
+# 2, thicken 2, dilate 2, gap-close 3, run length as a reverse scan along
+# the direction 3 (add, select, saturate), run start 2, packed word 4
+# (hop weight, shift, position, select), 8-row maximum 1.
+RUN_PACK_OPS_PER_PIXEL_DIR = 2 + 2 + 2 + 3 + 3 + 2 + 4 + 1
+
 # device-side sleep ahead of each timed batch (~20 ms at the H100's clock)
 SLEEP_CYCLES = 40_000_000
 
 BATCH = 8
 WARMUP_FRAMES = 2
 BENCH_FRAMES = 24
+POINTS_ONLY_FRAMES = 6
 PARITY_FRAMES = 3
 
 
@@ -111,7 +124,7 @@ def main() -> None:
     from stvo_pl_tpu_torch.models import frontend
     from stvo_pl_tpu_torch.ops import camera as cam_ops
     from stvo_pl_tpu_torch.ops import fast as fast_ops
-    from stvo_pl_tpu_torch.ops import fast_kernel, orb, patches
+    from stvo_pl_tpu_torch.ops import fast_kernel, lsd, lsd_kernel, orb, patches
     from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
     from stvo_pl_tpu_torch.parallel import batched
     from stvo_pl_tpu_torch.utils import metrics, synthetic
@@ -137,7 +150,8 @@ def main() -> None:
 
     cam = cam_ops.StereoCamera(fx=718.856, fy=718.856, cx=613.0, cy=185.0,
                                b=0.5372, width=1226, height=370)
-    cfg = VOConfig(has_lines=False)
+    cfg = VOConfig()                       # every default: points + lines
+    cfg_points = VOConfig(has_lines=False)
     n_frames = WARMUP_FRAMES + BENCH_FRAMES
 
     # the 8 lanes' sequences (bench.py's scene parameters), rendered on
@@ -271,47 +285,128 @@ def main() -> None:
               bound_ms=tot["bound_ms"], bound_by="bytes",
               library_ms=tot["lib_ms"])
 
-    # ---- 5. VO: the batched points-only step on 8 lanes ----------------
-    state = batched.init_batched_state(cfg, BATCH)
-    fast_kernel.fast_pack.launches = 0
-    patches.extract_patches.launches = 0
-    telems = []
-    for i in range(n_frames):
-        if i == WARMUP_FRAMES:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-        state, telem = batched.vo_step_batched(
-            state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(), cam,
-            cfg)
-        telems.append(telem)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = {"fast_pack": fast_kernel.fast_pack.launches,
-                "extract_patches": patches.extract_patches.launches}
-    expected = n_frames * cfg.orb_nlevels
-    fps = BENCH_FRAMES * BATCH / elapsed
+    # ---- 5. B3: LSD run pack ------------------------------------------
+    # main-path input: the direction bitmasks of the 16 first-frame octave
+    # canvases, built as the detector builds them
+    n_dirs = frame_mod._oct_dirs(cfg)
+    steps = lsd.direction_steps(n_dirs)
+    tol = math.radians(cfg.lsd_ang_th)
+    rho = cfg.lsd_quant / math.sin(tol)
+    cv = frame_mod.octave_canvas(first, cfg)
+    bits = lsd.direction_bitmask(cv.ang, cv.mag, steps, tol, rho).contiguous()
+    N, H, W = bits.shape
+    D, Ht, Wp = lsd_kernel.packed_shape(H, W, n_dirs)
 
-    gt = poses[WARMUP_FRAMES:].double().cpu().numpy()
-    est = torch.stack([t.Tfw for t in telems[WARMUP_FRAMES:]], dim=1)
-    est = est.double().cpu().numpy()                 # [B, T, 4, 4]
-    ates = [metrics.ate_rmse(est[b], gt) for b in range(BATCH)]
-    good = torch.stack([t.good for t in telems[WARMUP_FRAMES:]])
-    good_frac = float(good.float().mean())
-    n_pts = torch.stack([t.n_inliers_pt for t in telems[WARMUP_FRAMES:]])
-    emit("vo", lanes=BATCH, frames=n_frames, timed_frames=BENCH_FRAMES,
-         height=cam.height, width=cam.width, fps=fps,
-         ms_per_step=elapsed / BENCH_FRAMES * 1e3, card=smi,
-         ate_m=float(np.mean(ates)), ate_lanes=ates, good_frac=good_frac,
-         mean_inliers=float(n_pts.float().mean()), launches=launches,
-         expected_launches=expected)
-    for name, n in launches.items():
-        require(n == expected, f"{name} launched {n} times in "
-                f"{n_frames} steps, expected {expected}")
-    require(all(np.isfinite(a) for a in ates), f"non-finite ATE {ates}")
-    require(float(np.mean(ates)) < 0.1, f"mean ATE {np.mean(ates)} m")
-    require(good_frac >= 0.9, f"good_frac {good_frac}")
+    def random_bits(n_bits, density):
+        out = torch.zeros((N, H, W), dtype=torch.int32, device=dev)
+        for d in range(n_bits):
+            on = torch.rand((N, H, W), generator=gnoise, device=dev) < density
+            out |= on.to(torch.int32) << d
+        return out
 
-    # ---- 6. the kernels' path against the plain path -------------------
+    b3_err = 0.0
+    cases = [("rendered", bits, steps),
+             # set bits in the last row and column: runs continue into the
+             # padded domain
+             ("noise", random_bits(n_dirs, 0.05), steps),
+             ("noise_dense", random_bits(n_dirs, 0.5), steps),
+             ("noise_12_dirs", random_bits(12, 0.05), lsd.direction_steps(12))]
+    for name, x, st in cases:
+        k = lsd_kernel.run_pack_multi(x, st)
+        p = lsd_kernel.run_pack_multi_plain(x, st)
+        torch.cuda.synchronize()
+        b3_err = max(b3_err, float((k.long() - p.long()).abs().max()))
+        require(torch.equal(k, p), f"B3 {name}: kernel != plain at "
+                f"{int((k != p).sum())} words")
+        require(int((k > 0).sum()) > 0, f"B3 {name}: no run found")
+        if name != "rendered":
+            require(bool((x[:, -1, :] != 0).any() & (x[:, :, -1] != 0).any()),
+                    f"B3 {name}: no set bits at the border")
+    ms = time_ms(lambda: lsd_kernel.run_pack_multi(bits, steps), 20)
+    plain = time_ms(lambda: lsd_kernel.run_pack_multi_plain(bits, steps), 2)
+    noise_ms = time_ms(lambda: lsd_kernel.run_pack_multi(cases[1][1], steps),
+                       20)
+    bnd, by = bound_ms(N * H * W * 4 + N * D * Ht * Wp * 4,
+                       N * Ht * 8 * Wp * D * RUN_PACK_OPS_PER_PIXEL_DIR)
+    set_share = float((bits != 0).float().mean())
+    emit("B3_run_pack_multi", equal=True, cases=[c[0] for c in cases],
+         shape=[N, H, W], dirs=n_dirs, out_shape=[N, D, Ht, Wp],
+         set_pixel_share=set_share, ms=ms, noise_ms=noise_ms, plain_ms=plain,
+         bound_us=bnd * 1e3, bound_by=by)
+    b3 = dict(name="run_pack_multi", route="cuda",
+              source="stvo_pl_tpu_torch/csrc/lsd_run_pack.cu",
+              replaces="stvo_pl_tpu/ops/lsd_kernel.py:215",
+              max_abs_err=b3_err, ms=ms, plain_ms=plain, bound_ms=bnd,
+              bound_by=by, library_ms=None)
+    del cv, cases
+
+    # ---- 6. VO: the batched step on 8 lanes ----------------------------
+    wrappers = {"fast_pack": fast_kernel.fast_pack,
+                "extract_patches": patches.extract_patches,
+                "run_pack_multi": lsd_kernel.run_pack_multi}
+
+    def drive(run_cfg, frames, warmup):
+        """`frames` steps of the batched VO from a fresh state; the
+        kernels' counts are set to 0 just before and read just after."""
+        state = batched.init_batched_state(run_cfg, BATCH)
+        for w in wrappers.values():
+            w.launches = 0
+        telems = []
+        for i in range(frames):
+            if i == warmup:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, telem = batched.vo_step_batched(
+                state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(),
+                cam, run_cfg)
+            telems.append(telem)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        timed = telems[warmup:]
+        est = torch.stack([t.Tfw for t in timed], dim=1).double().cpu().numpy()
+        gt = poses[warmup:frames].double().cpu().numpy()
+        ates = [metrics.ate_rmse(est[b], gt) for b in range(BATCH)]
+        good = torch.stack([t.good for t in timed]).float().mean()
+        stat = lambda f: torch.stack(
+            [getattr(t, f) for t in timed]).float().mean(dim=0).tolist()
+        return telems, dict(
+            lanes=BATCH, frames=frames, timed_frames=frames - warmup,
+            height=cam.height, width=cam.width,
+            fps=(frames - warmup) * BATCH / elapsed,
+            ms_per_step=elapsed / (frames - warmup) * 1e3, card=smi,
+            ate_m=float(np.mean(ates)), ate_lanes=ates,
+            good_frac=float(good), inliers_pt_lanes=stat("n_inliers_pt"),
+            inliers_ls_lanes=stat("n_inliers_ls"), launches=launches)
+
+    def check(name, r, expected):
+        for k, n in expected.items():
+            require(r["launches"][k] == n, f"{name}: {k} launched "
+                    f"{r['launches'][k]} times in {r['frames']} steps, "
+                    f"expected {n}")
+        require(all(np.isfinite(a) for a in r["ate_lanes"]),
+                f"{name}: non-finite ATE {r['ate_lanes']}")
+        require(r["ate_m"] < 0.1, f"{name}: mean ATE {r['ate_m']} m")
+        require(r["good_frac"] >= 0.9, f"{name}: good_frac {r['good_frac']}")
+
+    # the points-only path, at a smaller depth
+    _, r_pts = drive(cfg_points, POINTS_ONLY_FRAMES, WARMUP_FRAMES)
+    emit("vo_points_only", **r_pts)
+    check("vo_points_only", r_pts,
+          {"fast_pack": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
+           "extract_patches": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
+           "run_pack_multi": 0})
+
+    # the main path: VOConfig() with every default, points + lines
+    telems, r_main = drive(cfg, n_frames, WARMUP_FRAMES)
+    emit("vo", **r_main, points_only_ms_per_step=r_pts["ms_per_step"])
+    check("vo", r_main, {"fast_pack": n_frames * cfg.orb_nlevels,
+                         "extract_patches": n_frames * cfg.orb_nlevels,
+                         "run_pack_multi": n_frames})
+    require(min(r_main["inliers_ls_lanes"]) > 0,
+            f"vo: a lane tracked no line: {r_main['inliers_ls_lanes']}")
+
+    # ---- 7. the kernels' path against the plain path -------------------
     # lane 0's first frames through the port on the CPU (plain versions)
     cpu_state = frontend.init_state(cfg, device="cpu")
     dmax = 0.0
@@ -323,11 +418,11 @@ def main() -> None:
     emit("cpu_parity", frames=PARITY_FRAMES, max_translation_diff_m=dmax)
     require(dmax < 0.01, f"GPU and CPU poses differ by {dmax} m")
 
-    b1["launches"] = launches["fast_pack"]
-    b2["launches"] = launches["extract_patches"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    table = [{k: row[k] for k in keys} for row in (b1, b2)]
+    table = [{k: row[k] for k in keys} for row in
+             (dict(r, launches=r_main["launches"][r["name"]])
+              for r in (b1, b2, b3))]
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,12 +20,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("fast_pack", "patches")
+SOURCES = ("fast_pack", "patches", "lsd_run_pack")
 LIB = "libstvo_kernels.so"
 
 # -fmad=false: fast_pack needs IEEE float arithmetic in the reference
 # kernel's order, with no FMA contraction (its source also spells the
-# sensitive lines with __f*_rn intrinsics); patches does no float math.
+# sensitive lines with __f*_rn intrinsics); patches and lsd_run_pack do no
+# float math.
 # -Xptxas=-v reports each kernel's registers and spills (`ptxas_report`).
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
@@ -36,6 +37,8 @@ SIGNATURES = {
     "stvo_fast_pack": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stvo_extract_patches_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stvo_extract_patches_b32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stvo_lsd_run_pack_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
+                                _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -209,10 +209,6 @@ def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                cam: cam_ops.StereoCamera,
                cfg: VOConfig) -> tuple[VOState, StepTelemetry]:
     """Process B rectified stereo pairs [B, H, W] for B lanes of state."""
-    if cfg.has_lines:
-        raise NotImplementedError(
-            "has_lines=True: the line half is slice 2 of the port; run "
-            "VOConfig(has_lines=False)")
     dev = state.Tfw.device
     for name, im in (("imgs_l", imgs_l), ("imgs_r", imgs_r)):
         if im.device != dev:
@@ -221,9 +217,10 @@ def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
             raise ValueError(f"{name} has shape {tuple(im.shape)}, expected "
                              f"({state.Tfw.shape[0]}, {cam.height}, "
                              f"{cam.width})")
+    llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_stereo_features(
         imgs_l.to(torch.float32), imgs_r.to(torch.float32), state.fast_th,
-        cam, cfg)
+        llength_th, cam, cfg)
     return _track_and_update(state, feats, cam, cfg)
 
 

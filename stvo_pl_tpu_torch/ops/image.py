@@ -136,6 +136,16 @@ def _device_pyramid(H: int, W: int, n_levels: int, scale: float,
                                             blur_sigma)]
 
 
+@functools.lru_cache(maxsize=32)
+def _device_resize(H: int, W: int, out_h: int, out_w: int, blur_sigma: float,
+                   device: torch.device):
+    """(My^T, Mx) of one resize on `device`, uploaded once."""
+    return (torch.from_numpy(
+                _resample_matrix(H, out_h, blur_sigma).T.copy()).to(device),
+            torch.from_numpy(_resample_matrix(W, out_w, blur_sigma)).to(
+                device))
+
+
 def _apply_separable(img: torch.Tensor, MyT: torch.Tensor,
                      Mx: torch.Tensor) -> torch.Tensor:
     return torch.matmul(torch.matmul(MyT, img), Mx)
@@ -146,10 +156,8 @@ def resize_bilinear(img: torch.Tensor, out_h: int, out_w: int,
     """Antialiased bilinear resize of [..., H, W] as two float32 products
     against the reference's interpolation matrices."""
     H, W = img.shape[-2:]
-    MyT = torch.from_numpy(
-        _resample_matrix(H, out_h, blur_sigma).T.copy()).to(img.device)
-    Mx = torch.from_numpy(_resample_matrix(W, out_w, blur_sigma)).to(
-        img.device)
+    MyT, Mx = _device_resize(H, W, out_h, out_w, float(blur_sigma),
+                             img.device)
     return _apply_separable(img, MyT, Mx)
 
 

@@ -23,5 +23,6 @@ def vo_step_batched(state: frontend.VOState, imgs_l: torch.Tensor,
                     imgs_r: torch.Tensor, cam: cam_ops.StereoCamera,
                     cfg: VOConfig):
     """One step for B sequences at once: [B, H, W] stereo stacks.  All
-    lanes and both eyes share each kernel launch."""
+    lanes and both eyes share each kernel launch (FAST and patches per
+    pyramid level, the line-run kernel once per step)."""
     return frontend.step_lanes(state, imgs_l, imgs_r, cam, cfg)

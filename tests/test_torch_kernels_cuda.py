@@ -54,3 +54,37 @@ def test_extract_patches_kernel_equals_plain(cuda, patch, dtype):
     p = patches.extract_patches_plain(img, y0, x0, patch)
     torch.cuda.synchronize()
     assert k.dtype == img.dtype and torch.equal(k, p)
+
+
+@pytest.mark.parametrize("shape,n_dirs,density,border", [
+    ((2, 70, 150), 8, 0.3, True),       # H % 64 != 0, set bits at the border
+    ((3, 64, 128), 16, 0.1, False),     # no padding at all
+    ((2, 97, 130), 12, 0.5, True),
+    ((16, 571, 1226), 8, 0.02, True),   # the main path's canvas
+])
+def test_run_pack_multi_kernel_equals_plain(cuda, shape, n_dirs, density,
+                                            border):
+    """Uniform random bitmasks; `border` keeps the set bits of the last
+    row and column, from which runs continue into the padded domain."""
+    from stvo_pl_tpu_torch.ops import lsd, lsd_kernel
+    g = torch.Generator(device=cuda).manual_seed(2)
+    steps = lsd.direction_steps(n_dirs)
+    bits = torch.zeros(shape, dtype=torch.int32, device=cuda)
+    for d in range(n_dirs):
+        on = torch.rand(shape, generator=g, device=cuda) < density
+        bits |= on.to(torch.int32) << d
+    if not border:
+        bits[:, -1, :] = 0
+        bits[:, :, -1] = 0
+    before = lsd_kernel.run_pack_multi.launches
+    k = lsd_kernel.run_pack_multi(bits, steps)
+    p = lsd_kernel.run_pack_multi_plain(bits, steps)
+    torch.cuda.synchronize()
+    assert lsd_kernel.run_pack_multi.launches == before + 1
+    assert k.shape == (shape[0],) + lsd_kernel.packed_shape(*shape[1:],
+                                                            n_dirs)
+    assert torch.equal(k, p), int((k != p).sum())
+    assert int((k > 0).sum()) > 0
+    for md in (0, 3):
+        assert torch.equal(lsd_kernel.run_pack_multi(bits, steps, md),
+                           lsd_kernel.run_pack_multi_plain(bits, steps, md))

@@ -75,9 +75,12 @@ def test_lines_and_bad_inputs_are_refused():
     from stvo_pl_tpu_torch.parallel import batched
     cam = tcam.StereoCamera(160.0, 160.0, 60.0, 40.0, 0.3, 120, 80)
     img = torch.zeros((2, 80, 120))
-    st = batched.init_batched_state(VOConfig(), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        batched.vo_step_batched(st, img, img, cam, VOConfig())
+    for kw, what in (({"use_edlines": True}, "use_edlines"),
+                     ({"lsd_octaves": 1}, "lsd_octaves=1")):
+        cfg = VOConfig(**kw)
+        st = batched.init_batched_state(cfg, 2, device="cpu")
+        with pytest.raises(NotImplementedError, match=what):
+            batched.vo_step_batched(st, img, img, cam, cfg)
     st = batched.init_batched_state(VOConfig(has_lines=False), 2,
                                     device="cpu")
     with pytest.raises(ValueError, match="shape"):

@@ -1,10 +1,16 @@
-"""Where the time of the port's batched points-only VO step goes, on a GPU.
+"""Where the time of the port's batched default (point + line) VO step
+goes, on a GPU.
 
     python3 tools/profile_torch_step.py [--steps 3]
 
 Renders chip_smoke.py's 8 KITTI-sized lanes, warms the step up, then
 (1) times the step's phases with the host clock around synchronized calls
-(front end, f2f matching, pose optimization, state update), (2) times
+(front end, f2f matching of points and of lines, pose optimization, and
+`track_and_update`, the whole of everything after the front end, which
+runs the matching and the optimization once more; the line half of the
+front end is run once more on its own as `front_end_lines`, and
+`line_half_share` sets it, with the line f2f matching, against the
+unprofiled step), (2) times
 whole unprofiled steps with the host clock, synchronized only at the ends
 (`step_ms`), and (3) traces whole steps with torch.profiler: device time
 and kernel launches per step, and the operators with the most host and
@@ -51,7 +57,8 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     cam = cam_ops.StereoCamera(fx=718.856, fy=718.856, cx=613.0, cy=185.0,
                                b=0.5372, width=1226, height=370)
-    cfg = VOConfig(has_lines=False)
+    cfg = VOConfig()
+    llength = cfg.min_line_length * min(cam.width, cam.height)
     n = 2 + 3 * args.steps + 1
     poses = synthetic.smooth_trajectory(n, speed=0.8, device=dev)
     L, R = [], []
@@ -71,8 +78,20 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # (1) phases, host clock around synchronized calls
-    phases = {"front_end": 0.0, "f2f_match": 0.0, "optimize_pose": 0.0,
-              "state_update": 0.0}
+    phases = {"front_end": 0.0, "front_end_lines": 0.0, "f2f_match": 0.0,
+              "f2f_match_lines": 0.0, "optimize_pose": 0.0,
+              "track_and_update": 0.0}
+
+    def line_half(img_l, img_r):
+        B = img_l.shape[0]
+        cv = frame_mod.octave_canvas(torch.cat([img_l, img_r]), cfg)
+        sl, ol, dl = frame_mod.lines_from_canvas(
+            frame_mod._slice_canvas(cv, slice(0, B)), llength, cfg)
+        sr, _, dr = frame_mod.lines_from_canvas(
+            frame_mod._slice_canvas(cv, slice(B, 2 * B)), llength, cfg,
+            pool=cfg.lsd_oct_pool_right)
+        return frame_mod.match_stereo_lines(sl, dl, sr, dr, cam, cfg,
+                                            level_l=ol)
 
     def clock(name, fn, *a):
         torch.cuda.synchronize()
@@ -85,17 +104,17 @@ def main() -> None:
     for i in range(2, 2 + args.steps):
         feats = clock("front_end", frame_mod.extract_stereo_features,
                       L[:, i].contiguous(), R[:, i].contiguous(),
-                      state.fast_th, cam, cfg)
+                      state.fast_th, llength, cam, cfg)
+        clock("front_end_lines", line_half, L[:, i].contiguous(),
+              R[:, i].contiguous())
         pm = clock("f2f_match", frontend.match_f2f_points,
                    state.prev_points, feats.points, cfg, cam)
-        lm = frontend.match_f2f_lines(state.prev_lines, feats.lines, cfg,
-                                      cam)
+        lm = clock("f2f_match_lines", frontend.match_f2f_lines,
+                   state.prev_lines, feats.lines, cfg, cam)
         clock("optimize_pose", optimizer.optimize_pose, pm, lm, cam, cfg,
               state.DT, state.DT_cov, state.err_norm)
-        state, _ = clock("state_update", frontend._track_and_update, state,
-                         feats, cam, cfg)
-    # state_update re-ran matching + optimization: keep its own share only
-    phases["state_update"] -= phases["f2f_match"] + phases["optimize_pose"]
+        state, _ = clock("track_and_update", frontend._track_and_update,
+                         state, feats, cam, cfg)
     phases = {k: v / args.steps for k, v in phases.items()}
 
     # (2) whole steps, unprofiled
@@ -133,6 +152,8 @@ def main() -> None:
         "height": cam.height, "width": cam.width,
         "phase_ms_per_step": phases,
         "step_ms": step_ms,
+        "line_half_share": (phases["front_end_lines"]
+                            + phases["f2f_match_lines"]) / step_ms,
         "profiled_ms_per_step": wall_ms,
         "device_busy_ms_per_step": dev_us / 1e3 / args.steps,
         "device_busy_share": dev_us / 1e3 / args.steps / step_ms,
