@@ -3,14 +3,19 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from stvo_pl_tpu_torch/csrc, holds each kernel
-(FAST pack, patch gather, LSD run pack) against its plain PyTorch version
-at the shapes of the main path, then drives the default point + line VO
+(FAST pack, patch gather, the all-direction and the one-direction LSD run
+pack, XOR + popcount Hamming) against its plain PyTorch version at the
+shapes of the paths that run it, then drives the default point + line VO
 step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
 synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
-checks the trajectories, and the points-only step over the first 6 frames
-of the same sequences.  Every phase prints one JSON line; any failed check
-exits non-zero.  The last three lines are the kernel table, the card's
-name and power limit, and the result line.
+checks the trajectories.  Over the first 6 frames of the same sequences it
+also drives the points-only step, the dense single-octave line detector
+(lsd_octaves=1) with either run candidate generator, the default step with
+popcount Hamming distances (hamming_use_mxu=False), the binary descriptor
+matcher over an index of the lanes' line descriptors, and the RGB-D step
+on one lane.  Every phase prints one JSON line; any failed check exits
+non-zero.  The last three lines are the kernel table, the card's name and
+power limit, and the result line.
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.
@@ -44,6 +49,11 @@ FAST_OPS_PER_PIXEL = 16 + 2 * 23 * 2 + 2 * 16 * 2 + 2 * 15 + 2
 # the direction 3 (add, select, saturate), run start 2, packed word 4
 # (hop weight, shift, position, select), 8-row maximum 1.
 RUN_PACK_OPS_PER_PIXEL_DIR = 2 + 2 + 2 + 3 + 3 + 2 + 4 + 1
+# the one-direction kernel: the same without the hop weight and without the
+# 8-row maximum
+RUN_PACK_ONE_OPS_PER_PIXEL = RUN_PACK_OPS_PER_PIXEL_DIR - 2
+# XOR + popcount Hamming: 8 XOR, 8 popcounts and 8 adds per pair
+HAMMING_OPS_PER_PAIR = 24
 
 # device-side sleep ahead of each timed batch (~20 ms at the H100's clock)
 SLEEP_CYCLES = 40_000_000
@@ -51,8 +61,10 @@ SLEEP_CYCLES = 40_000_000
 BATCH = 8
 WARMUP_FRAMES = 2
 BENCH_FRAMES = 24
-POINTS_ONLY_FRAMES = 6
+POINTS_ONLY_FRAMES = 6      # depth of every VO phase but the main one
 PARITY_FRAMES = 3
+DENSE_PARITY_FRAMES = 2
+INDEX_IMAGES = 64           # the matcher phase: 64 x 300 index rows
 
 
 def fail(msg: str) -> None:
@@ -124,7 +136,8 @@ def main() -> None:
     from stvo_pl_tpu_torch.models import frontend
     from stvo_pl_tpu_torch.ops import camera as cam_ops
     from stvo_pl_tpu_torch.ops import fast as fast_ops
-    from stvo_pl_tpu_torch.ops import fast_kernel, lsd, lsd_kernel, orb, patches
+    from stvo_pl_tpu_torch.ops import binary_matcher, fast_kernel, hamming
+    from stvo_pl_tpu_torch.ops import lsd, lsd_kernel, orb, patches
     from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
     from stvo_pl_tpu_torch.parallel import batched
     from stvo_pl_tpu_torch.utils import metrics, synthetic
@@ -166,6 +179,9 @@ def main() -> None:
         left, right = synthetic.render_sequence(scene, poses, cam)
         seq_l.append(left)
         seq_r.append(right)
+        if b == 0:      # lane 0's depth maps, for the RGB-D phase
+            depth0 = synthetic.render_depth(
+                scene, poses[:POINTS_ONLY_FRAMES], cam)
     seq_l = torch.stack(seq_l)            # [B, T, H, W]
     seq_r = torch.stack(seq_r)
     torch.cuda.synchronize()
@@ -340,12 +356,146 @@ def main() -> None:
               bound_by=by, library_ms=None)
     del cv, cases
 
+    # ---- 5b. B4: one-direction LSD run pack ----------------------------
+    # the dense detector's input: the aligned masks of the 16 first frames
+    # for its 12 directions, built as the per-direction generator builds
+    # them
+    dsteps = lsd.direction_steps(cfg.lsd_n_dirs)
+    ang, mag = lsd.line_field(first)
+    strong = mag > lsd._f32(rho)
+    N, H, W = first.shape
+    Hp4, Wp4 = lsd_kernel.run_pack_shape(H, W)
+
+    def aligned_mask(step):
+        theta = lsd._f32(math.atan2(step[1], step[0]) % math.pi)
+        return ((lsd._angle_dist_mod_pi(ang, theta) < lsd._f32(tol))
+                & strong).contiguous()
+
+    def noise_mask(shape, density):
+        return torch.rand(shape, generator=gnoise, device=dev) < density
+
+    masks = [aligned_mask(st) for st in dsteps]
+    # one axis-aligned, one with dx < 0 and |dx| = 4, one with |dy| = 4
+    named = {"axis": (1, 0), "neg_dx4": (-4, 1), "dy4": (1, 4)}
+    require(all(st in dsteps for st in named.values()),
+            f"B4: the dense directions {dsteps} lack one of {named}")
+    b4_cases = [(f"rendered_{dx}_{dy}", m, (dx, dy))
+                for m, (dx, dy) in zip(masks, dsteps)]
+    # set bits in the last row and column: runs continue into the pad
+    b4_cases += [("noise_5", noise_mask((N, H, W), 0.05), (-4, 1)),
+                 ("noise_50", noise_mask((N, H, W), 0.5), (1, 4)),
+                 ("noise_int8", noise_mask((N, H, W), 0.3).to(torch.int8),
+                  (4, 3)),
+                 # H % 8 != 0 and a ragged last 32-row tile
+                 ("odd_shape", noise_mask((3, 203, 333), 0.3), (-3, 4))]
+    b4_err = 0.0
+    for name, x, (dx, dy) in b4_cases:
+        k = lsd_kernel.run_pack(x, dx, dy)
+        p = lsd_kernel.run_pack_plain(x, dx, dy)
+        torch.cuda.synchronize()
+        b4_err = max(b4_err, float((k.long() - p.long()).abs().max()))
+        require(torch.equal(k, p), f"B4 {name}: kernel != plain at "
+                f"{int((k != p).sum())} words")
+        require(int((k > 0).sum()) > 0, f"B4 {name}: no run found")
+        if name.startswith("noise"):
+            require(bool((x[:, -1, :] != 0).any() & (x[:, :, -1] != 0).any()),
+                    f"B4 {name}: no set bits at the border")
+    # one step of the per-direction detector launches it once per direction
+    b4_dirs = []
+    b4_ms = b4_plain = 0.0
+    for m, (dx, dy) in zip(masks, dsteps):
+        ms = time_ms(lambda: lsd_kernel.run_pack(m, dx, dy), 20)
+        plain = time_ms(lambda: lsd_kernel.run_pack_plain(m, dx, dy), 2)
+        b4_ms += ms
+        b4_plain += plain
+        b4_dirs.append(dict(step=[dx, dy], ms=ms, plain_ms=plain,
+                            set_share=float(m.float().mean())))
+    b4_noise_ms = time_ms(
+        lambda: lsd_kernel.run_pack(b4_cases[len(dsteps)][1], -4, 1), 20)
+    bnd1, b4_by = bound_ms(N * H * W + N * Hp4 * Wp4 * 4,
+                           N * Hp4 * Wp4 * RUN_PACK_ONE_OPS_PER_PIXEL)
+    b4_bnd = bnd1 * len(dsteps)
+    emit("B4_run_pack", equal=True, cases=[c[0] for c in b4_cases],
+         shape=[N, H, W], out_shape=[N, Hp4, Wp4], dirs=b4_dirs,
+         step_ms=b4_ms, step_plain_ms=b4_plain, noise_5_ms=b4_noise_ms,
+         launch_bound_us=bnd1 * 1e3, step_bound_us=b4_bnd * 1e3,
+         bound_by=b4_by)
+    b4 = dict(name="run_pack", route="cuda",
+              source="stvo_pl_tpu_torch/csrc/lsd_run_pack.cu",
+              replaces="stvo_pl_tpu/ops/lsd_kernel.py:90",
+              max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain,
+              bound_ms=b4_bnd, bound_by=b4_by, library_ms=None)
+    del masks, b4_cases, ang, mag, strong
+
+    # ---- 5c. B5: XOR + popcount Hamming --------------------------------
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gnoise,
+                             device=dev, dtype=torch.int32)
+
+    K, Kl = cfg.point_capacity, cfg.line_capacity
+    n_index = INDEX_IMAGES * Kl
+    n_query = BATCH * Kl
+    b5_shapes = {"points": (words(BATCH, K, 8), words(BATCH, K, 8)),
+                 "lines": (words(BATCH, Kl, 8), words(BATCH, Kl, 8)),
+                 "matcher": (words(n_query, 8), words(n_index, 8)),
+                 "odd": (words(300, 8), words(257, 8))}
+    b5_err = 0.0
+    b5_rows = {}
+    for name, (d1, d2) in b5_shapes.items():
+        d2[..., :5, :] = d1[..., :5, :]           # pairs at distance 0
+        k = hamming.hamming_matrix_popc(d1, d2)
+        p = hamming.hamming_matrix_xla(d1, d2)
+        m = hamming.hamming_matrix_mxu(d1, d2)
+        torch.cuda.synchronize()
+        b5_err = max(b5_err, float((k - p).abs().max()))
+        require(torch.equal(k, p), f"B5 {name}: kernel != plain at "
+                f"{int((k != p).sum())} pairs")
+        require(torch.equal(k, m), f"B5 {name}: kernel != bf16 product at "
+                f"{int((k != m).sum())} pairs")
+        require(int(k[..., 0, 0].max()) == 0 and int(k.max()) > 128,
+                f"B5 {name}: distances out of range")
+        del p, m
+        pairs = k.numel()
+        bnd, by = bound_ms((d1.numel() + d2.numel() + pairs) * 4,
+                           pairs * HAMMING_OPS_PER_PAIR)
+        big = name == "matcher"
+        b5_rows[name] = dict(
+            shapes=[list(d1.shape), list(d2.shape)],
+            ms=time_ms(lambda: hamming.hamming_matrix_popc(d1, d2),
+                       10 if big else 50),
+            plain_ms=time_ms(lambda: hamming.hamming_matrix_xla(d1, d2),
+                             2 if big else 10),
+            library_ms=time_ms(lambda: hamming.hamming_matrix_mxu(d1, d2),
+                               10 if big else 50),
+            bound_us=bnd * 1e3, bound_by=by)
+        del k
+    # one popcount VO step: stereo and frame-to-frame matching, of points
+    # and of lines
+    per_step = lambda key: 2 * (b5_rows["points"][key] + b5_rows["lines"][key])
+    emit("B5_hamming_popc", equal=True, equal_to_bf16_product=True,
+         shapes=b5_rows, step_ms=per_step("ms"),
+         step_plain_ms=per_step("plain_ms"),
+         step_library_ms=per_step("library_ms"),
+         step_bound_us=per_step("bound_us"))
+    b5 = dict(name="hamming_matrix_popc", route="cuda",
+              source="stvo_pl_tpu_torch/csrc/hamming.cu",
+              replaces="stvo_pl_tpu/ops/hamming.py:87",
+              max_abs_err=b5_err, ms=per_step("ms"),
+              plain_ms=per_step("plain_ms"),
+              bound_ms=per_step("bound_us") / 1e3,
+              bound_by=b5_rows["points"]["bound_by"],
+              library_ms=per_step("library_ms"))
+    del b5_shapes
+
     # ---- 6. VO: the batched step on 8 lanes ----------------------------
     wrappers = {"fast_pack": fast_kernel.fast_pack,
                 "extract_patches": patches.extract_patches,
-                "run_pack_multi": lsd_kernel.run_pack_multi}
+                "run_pack_multi": lsd_kernel.run_pack_multi,
+                "run_pack": lsd_kernel.run_pack,
+                "hamming_matrix_popc": hamming.hamming_matrix_popc}
+    line_log = []       # (descriptors, validity) of each step's left lines
 
-    def drive(run_cfg, frames, warmup):
+    def drive(run_cfg, frames, warmup, per_direction=False, log=None):
         """`frames` steps of the batched VO from a fresh state; the
         kernels' counts are set to 0 just before and read just after."""
         state = batched.init_batched_state(run_cfg, BATCH)
@@ -358,8 +508,10 @@ def main() -> None:
                 t0 = time.perf_counter()
             state, telem = batched.vo_step_batched(
                 state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(),
-                cam, run_cfg)
+                cam, run_cfg, per_direction=per_direction)
             telems.append(telem)
+            if log is not None:
+                log.append((state.prev_lines.desc, state.prev_lines.valid))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
@@ -380,7 +532,9 @@ def main() -> None:
             inliers_ls_lanes=stat("n_inliers_ls"), launches=launches)
 
     def check(name, r, expected):
-        for k, n in expected.items():
+        # a kernel that is not named must not have run
+        for k in wrappers:
+            n = expected.get(k, 0)
             require(r["launches"][k] == n, f"{name}: {k} launched "
                     f"{r['launches'][k]} times in {r['frames']} steps, "
                     f"expected {n}")
@@ -398,13 +552,131 @@ def main() -> None:
            "run_pack_multi": 0})
 
     # the main path: VOConfig() with every default, points + lines
-    telems, r_main = drive(cfg, n_frames, WARMUP_FRAMES)
+    telems, r_main = drive(cfg, n_frames, WARMUP_FRAMES, log=line_log)
     emit("vo", **r_main, points_only_ms_per_step=r_pts["ms_per_step"])
     check("vo", r_main, {"fast_pack": n_frames * cfg.orb_nlevels,
                          "extract_patches": n_frames * cfg.orb_nlevels,
                          "run_pack_multi": n_frames})
     require(min(r_main["inliers_ls_lanes"]) > 0,
             f"vo: a lane tracked no line: {r_main['inliers_ls_lanes']}")
+
+    # the dense single-octave detector with either candidate generator
+    nf = POINTS_ONLY_FRAMES
+    points_launches = {"fast_pack": nf * cfg.orb_nlevels,
+                       "extract_patches": nf * cfg.orb_nlevels}
+    cfg_dense = VOConfig(lsd_octaves=1)
+    r_dense = {}
+    for gen_name, per_direction, lsd_launches in (
+            ("all_direction", False, {"run_pack_multi": nf}),
+            ("per_direction", True, {"run_pack": nf * cfg.lsd_n_dirs})):
+        tel_d, r = drive(cfg_dense, nf, WARMUP_FRAMES,
+                         per_direction=per_direction)
+        check(f"vo_dense {gen_name}", r, {**points_launches, **lsd_launches})
+        require(min(r["inliers_ls_lanes"]) > 0, f"vo_dense {gen_name}: a "
+                f"lane tracked no line: {r['inliers_ls_lanes']}")
+        r_dense[gen_name] = r
+        if per_direction:
+            telems_dense_pd = tel_d
+    emit("vo_dense", generators=r_dense,
+         ate_m={k: r["ate_m"] for k, r in r_dense.items()},
+         inliers_ls={k: float(np.mean(r["inliers_ls_lanes"]))
+                     for k, r in r_dense.items()},
+         ms_per_step={k: r["ms_per_step"] for k, r in r_dense.items()})
+
+    # the default step with XOR + popcount distances: the same integers
+    # as the bf16 product's, so the same poses
+    tel_p, r_popc = drive(VOConfig(hamming_use_mxu=False), nf, WARMUP_FRAMES)
+    n_popc = r_popc["launches"]["hamming_matrix_popc"]
+    require(n_popc > 0 and n_popc % nf == 0, f"vo_popcount: {n_popc} "
+            f"Hamming launches in {nf} steps")
+    check("vo_popcount", r_popc, {**points_launches, "run_pack_multi": nf,
+                                  "hamming_matrix_popc": n_popc})
+    pose_diff = max(float((a.Tfw[:, :3, 3] - b.Tfw[:, :3, 3]).abs().max())
+                    for a, b in zip(tel_p, telems))
+    emit("vo_popcount", **r_popc, hamming_launches_per_step=n_popc // nf,
+         max_translation_diff_to_vo_m=pose_diff,
+         poses_bit_equal=all(torch.equal(a.Tfw, b.Tfw)
+                             for a, b in zip(tel_p, telems)))
+    require(pose_diff <= 1e-6, f"vo_popcount: poses differ from the bf16 "
+            f"product's by {pose_diff} m")
+
+    # ---- 6b. the binary descriptor matcher -----------------------------
+    # index: the left lines of the main run's first 8 steps x 8 lanes (64
+    # images x 300 rows), rows without a line filled with seeded random
+    # words; queries: the 9th step's lines, the first 100 replaced by rows
+    # of the index
+    steps_in_index = INDEX_IMAGES // BATCH
+    descs, n_detected = [], 0
+    for desc, valid in line_log[:steps_in_index]:
+        fill = words(*desc.shape)
+        descs += list(torch.where(valid[..., None], desc, fill))
+        n_detected += int(valid.sum())
+    index = binary_matcher.build_index(descs)
+    qd, qv = line_log[steps_in_index]
+    query = torch.where(qv[..., None], qd, words(*qd.shape)).reshape(-1, 8)
+    planted = torch.arange(100, device=dev) * 191
+    query[:100] = index.desc[planted]
+    require(index.desc.shape == (n_index, 8) and query.shape == (n_query, 8),
+            f"binary_matcher: index {tuple(index.desc.shape)}, queries "
+            f"{tuple(query.shape)}")
+    hamming.hamming_matrix_popc.launches = 0
+    t0 = time.perf_counter()
+    res = {}
+    for use_mxu in (False, True):
+        res[use_mxu] = (
+            binary_matcher.knn_match(query, index, 2, use_mxu=use_mxu),
+            binary_matcher.match(query, index, use_mxu=use_mxu),
+            binary_matcher.radius_match(query, index, max_distance=40,
+                                        max_results=4, use_mxu=use_mxu))
+    torch.cuda.synchronize()
+    matcher_s = time.perf_counter() - t0
+    for a, b in zip(res[False], res[True]):
+        for f, x, y in zip(a._fields, a, b):
+            require(torch.equal(x, y), f"binary_matcher: {f} differs between "
+                    f"the popcount kernel and the bf16 product")
+    knn = res[False][0]
+    require(bool((knn.dist[:100, 0] == 0).all())
+            and bool((knn.dist[:, 0] <= knn.dist[:, 1]).all()),
+            "binary_matcher: planted queries not at distance 0")
+    # a planted query finds its own row, or an equal row before it
+    found = knn.idx[:100, 0]
+    require(bool((found <= planted).all())
+            and torch.equal(index.desc[found], query[:100]),
+            "binary_matcher: planted queries did not find themselves")
+    require(hamming.hamming_matrix_popc.launches == 3,
+            f"binary_matcher: {hamming.hamming_matrix_popc.launches} "
+            f"Hamming launches in 3 popcount calls")
+    emit("binary_matcher", index_rows=n_index, detected_rows=n_detected,
+         queries=n_query, equal_to_bf16_product=True, planted_found=100,
+         in_radius_40=int((res[False][2].idx >= 0).sum()),
+         seconds_6_calls=matcher_s)
+    del res, index, query, descs
+
+    # ---- 6c. RGB-D: lane 0 with the renderer's depth maps --------------
+    cfg_rgbd = VOConfig(rgbd_max_depth=200.0)     # the scene reaches 95 m
+    for w in wrappers.values():
+        w.launches = 0
+    state = frontend.init_state(cfg_rgbd)
+    traj, rgbd_ls, rgbd_pt = [], 0, 0
+    for i in range(nf):
+        state, t = frontend.vo_step_rgbd(state, seq_l[0, i].contiguous(),
+                                         depth0[i], cam, cfg_rgbd)
+        traj.append(t.Tfw)
+        rgbd_ls += int(t.n_inliers_ls)
+        rgbd_pt += int(t.n_inliers_pt)
+    torch.cuda.synchronize()
+    rgbd_ate = metrics.ate_rmse(torch.stack(traj).double().cpu().numpy(),
+                                poses[:nf].double().cpu().numpy())
+    emit("rgbd", frames=nf, ate_m=rgbd_ate,
+         depth_share=float((depth0 > 0).float().mean()),
+         inliers_pt_per_frame=rgbd_pt / (nf - 1),
+         inliers_ls_per_frame=rgbd_ls / (nf - 1),
+         launches={k: w.launches for k, w in wrappers.items()})
+    require(np.isfinite(rgbd_ate) and rgbd_ate < 0.1,
+            f"rgbd: ATE {rgbd_ate} m")
+    require(fast_kernel.fast_pack.launches == nf * cfg.orb_nlevels
+            and lsd_kernel.run_pack_multi.launches == nf,
+            "rgbd: the step did not go through the FAST and run kernels")
 
     # ---- 7. the kernels' path against the plain path -------------------
     # lane 0's first frames through the port on the CPU (plain versions)
@@ -415,14 +687,33 @@ def main() -> None:
                                          seq_r[0, i].cpu(), cam, cfg)
         gpu_T = telems[i].Tfw[0].cpu()
         dmax = max(dmax, float((ct.Tfw[:3, 3] - gpu_T[:3, 3]).abs().max()))
-    emit("cpu_parity", frames=PARITY_FRAMES, max_translation_diff_m=dmax)
+    # and of the dense per-direction configuration
+    cpu_state = frontend.init_state(cfg_dense, device="cpu")
+    dmax_dense = 0.0
+    for i in range(DENSE_PARITY_FRAMES):
+        cpu_state, ct = frontend.vo_step(
+            cpu_state, seq_l[0, i].cpu(), seq_r[0, i].cpu(), cam, cfg_dense,
+            per_direction=True)
+        gpu_T = telems_dense_pd[i].Tfw[0].cpu()
+        dmax_dense = max(dmax_dense,
+                         float((ct.Tfw[:3, 3] - gpu_T[:3, 3]).abs().max()))
+    emit("cpu_parity", frames=PARITY_FRAMES, max_translation_diff_m=dmax,
+         dense_per_direction_frames=DENSE_PARITY_FRAMES,
+         dense_max_translation_diff_m=dmax_dense)
     require(dmax < 0.01, f"GPU and CPU poses differ by {dmax} m")
+    require(dmax_dense < 0.01, f"dense per-direction: GPU and CPU poses "
+            f"differ by {dmax_dense} m")
 
+    # each kernel's launches come from the phase whose path runs it
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
+              (b4, r_dense["per_direction"]), (b5, r_popc)]
     table = [{k: row[k] for k in keys} for row in
-             (dict(r, launches=r_main["launches"][r["name"]])
-              for r in (b1, b2, b3))]
+             (dict(r, launches=run["launches"][r["name"]])
+              for r, run in ran_in)]
+    require(all(row["launches"] > 0 for row in table),
+            f"a kernel was launched no time on its path: {table}")
     print(json.dumps({"kernels": table}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,13 +20,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("fast_pack", "patches", "lsd_run_pack")
+SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming")
 LIB = "libstvo_kernels.so"
 
 # -fmad=false: fast_pack needs IEEE float arithmetic in the reference
 # kernel's order, with no FMA contraction (its source also spells the
-# sensitive lines with __f*_rn intrinsics); patches and lsd_run_pack do no
-# float math.
+# sensitive lines with __f*_rn intrinsics); patches, lsd_run_pack and
+# hamming do no float math.
 # -Xptxas=-v reports each kernel's registers and spills (`ptxas_report`).
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
@@ -39,6 +39,8 @@ SIGNATURES = {
     "stvo_extract_patches_b32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "stvo_lsd_run_pack_multi": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                                 _P],
+    "stvo_lsd_run_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "stvo_hamming_popc": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

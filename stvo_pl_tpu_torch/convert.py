@@ -7,7 +7,8 @@ mapping keys), and returns the port's `VOState` on `device`.
 `state_to_numpy` goes back to a `VOState` of numpy arrays.  Descriptor
 words travel as the reference's uint32 in numpy and as int32 with the same
 bits in the port; every other leaf keeps its dtype, so the round trip is
-bit-exact.
+bit-exact.  `index_from_numpy` / `index_to_numpy` do the same for the
+`DescriptorIndex` of ops/binary_matcher.py.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from stvo_pl_tpu_torch.device import resolve_device
 from stvo_pl_tpu_torch.models.features import LineSet, PointSet
 from stvo_pl_tpu_torch.models.frontend import VOState
+from stvo_pl_tpu_torch.ops.binary_matcher import DescriptorIndex
 
 _NESTED = {"prev_points": PointSet, "prev_lines": LineSet}
 
@@ -67,3 +69,17 @@ def state_to_numpy(state: VOState) -> VOState:
         else:
             fields[name] = _to_numpy(sub, name)
     return VOState(**fields)
+
+
+def index_from_numpy(tree, device=None) -> DescriptorIndex:
+    """JAX DescriptorIndex of numpy leaves -> the port's, on `device`."""
+    dev = resolve_device(device)
+    return DescriptorIndex(**{f: _to_torch(_get(tree, f), dev)
+                              for f in DescriptorIndex._fields})
+
+
+def index_to_numpy(index: DescriptorIndex) -> DescriptorIndex:
+    """The port's DescriptorIndex with numpy leaves (descriptors as
+    uint32)."""
+    return DescriptorIndex(**{f: _to_numpy(getattr(index, f), f)
+                              for f in DescriptorIndex._fields})

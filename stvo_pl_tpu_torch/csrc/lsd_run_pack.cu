@@ -38,6 +38,18 @@
 //
 // The directions, their hop weights hq and D are arguments, so one build
 // serves every direction count.
+//
+// Second entry, stvo_lsd_run_pack: ONE direction of a 0/1 aligned mask
+// [N, H, W] (one byte per pixel) -> [N, Hp, Wp] i32, Hp = round_up(H, 8):
+// every pixel's own word f * 64 + (63 - (y % 8) * 8 - x % 8) at run starts,
+// without hop weight and without the 8-row maximum.  Replaces the TPU kernel
+// stvo_pl_tpu/ops/lsd_kernel.py::_run_pack_pallas (body _make_kernel), which
+// the per-direction candidate generator of the dense detector launches once
+// per direction.  It shares pass 1 (run_bits_kernel with D = 1; the padded
+// height need not be a multiple of the tile, so tile rows beyond Hp are
+// outside the domain and are not written) and has a pass 2 of its own,
+// pack_pixel_kernel, one thread per pixel.  Bytes bound it: 1 in, 4 out per
+// pixel against about 17 integer operations.
 
 #include <cuda_runtime.h>
 
@@ -65,14 +77,23 @@ __device__ __forceinline__ bool in_dom(int y, int x, int Hp, int Wp) {
   return (unsigned)y < (unsigned)Hp && (unsigned)x < (unsigned)Wp;
 }
 
+// the low 16 direction bits of a bitmask pixel / bit 0 of a 0/1 mask pixel
+__device__ __forceinline__ unsigned load_bits(int v) {
+  return (unsigned)v & 0xFFFFu;
+}
+__device__ __forceinline__ unsigned load_bits(unsigned char v) {
+  return v != 0 ? 1u : 0u;
+}
+
+template <typename In>
 __global__ void __launch_bounds__(THREADS)
-run_bits_kernel(const int* __restrict__ bits, unsigned short* __restrict__ run,
+run_bits_kernel(const In* __restrict__ bits, unsigned short* __restrict__ run,
                 int H, int W, int Hp, int Wp, Dirs dirs, unsigned mask_v) {
   __shared__ unsigned short A[AY][AX];
   __shared__ unsigned short T[TTY][TTX];
   const int n = blockIdx.z;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int* im = bits + (size_t)n * H * W;
+  const In* im = bits + (size_t)n * H * W;
   const unsigned mask_h = ~mask_v;
 
   for (int i = threadIdx.x; i < AY * AX; i += THREADS) {
@@ -80,7 +101,7 @@ run_bits_kernel(const int* __restrict__ bits, unsigned short* __restrict__ run,
     const int y = y0 + ly - HA, x = x0 + lx - HA;
     unsigned v = 0;
     if ((unsigned)y < (unsigned)H && (unsigned)x < (unsigned)W)
-      v = (unsigned)im[(size_t)y * W + x] & 0xFFFFu;
+      v = load_bits(im[(size_t)y * W + x]);
     A[ly][lx] = (unsigned short)v;
   }
   __syncthreads();
@@ -104,6 +125,7 @@ run_bits_kernel(const int* __restrict__ bits, unsigned short* __restrict__ run,
   for (int i = threadIdx.x; i < TY * TX; i += THREADS) {
     const int ly = i / TX, lx = i % TX;
     const int y = y0 + ly, x = x0 + lx;
+    if (y >= Hp) break;                  // a ragged last tile row (B4 only)
     const int ty = ly + HT, tx = lx + HT;
     const unsigned t0 = T[ty][tx];
     unsigned word = 0;
@@ -160,6 +182,33 @@ pack_kernel(const unsigned short* __restrict__ run, int* __restrict__ out,
   }
 }
 
+// One direction, one thread per pixel of the padded domain: the word of
+// the pixel's own run start, 0 elsewhere.
+__global__ void __launch_bounds__(THREADS)
+pack_pixel_kernel(const unsigned short* __restrict__ run,
+                  int* __restrict__ out, int Hp, int Wp, int dx, int dy,
+                  int cap) {
+  const int x = blockIdx.x * THREADS + threadIdx.x;
+  if (x >= Wp) return;
+  const int y = blockIdx.y, n = blockIdx.z;
+  const unsigned short* R = run + (size_t)n * Hp * Wp;
+  int word = 0;
+  if (R[(size_t)y * Wp + x] & 1u) {
+    const int yb = y - dy, xb = x - dx;
+    if (!(in_dom(yb, xb, Hp, Wp) && (R[(size_t)yb * Wp + xb] & 1u))) {
+      int f = 1, yy = y + dy, xx = x + dx;
+      while (f < cap && in_dom(yy, xx, Hp, Wp) &&
+             (R[(size_t)yy * Wp + xx] & 1u)) {
+        ++f;
+        yy += dy;
+        xx += dx;
+      }
+      word = f * 64 + (63 - (y & 7) * 8 - (x & 7));
+    }
+  }
+  out[((size_t)n * Hp + y) * Wp + x] = word;
+}
+
 }  // namespace
 
 // bits [N, H, W] i32, run [N, Hp, Wp] 16-bit scratch, out [N, D, Hp/8, Wp]
@@ -185,11 +234,40 @@ extern "C" int stvo_lsd_run_pack_multi(const void* bits, void* run, void* out,
   }
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    run_bits_kernel<<<dim3(Wp / TX, Hp / TY, N), THREADS, 0, s>>>(
+    run_bits_kernel<int><<<dim3(Wp / TX, Hp / TY, N), THREADS, 0, s>>>(
         (const int*)bits, (unsigned short*)run, H, W, Hp, Wp, dirs, mask_v);
     pack_kernel<<<dim3((Wp + THREADS - 1) / THREADS, Hp / 8, N), THREADS, 0,
                   s>>>((const unsigned short*)run, (int*)out, Hp, Wp, dirs,
                        cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// aligned [N, H, W] one byte per pixel (0 / non-zero), run [N, Hp, Wp]
+// 16-bit scratch, out [N, Hp, Wp] i32, all on the device; one direction
+// (dx, dy); Hp a multiple of 8 (any number of tiles), Wp of 128.
+extern "C" int stvo_lsd_run_pack(const void* aligned, void* run, void* out,
+                                 int N, int H, int W, int Hp, int Wp, int dx,
+                                 int dy, int cap, void* stream) {
+  if (Hp % 8 || Wp % TX || H > Hp || W > Wp || Hp > 65535 ||
+      abs(dx) > MAX_STEP || abs(dy) > MAX_STEP || (dx == 0 && dy == 0))
+    return (int)cudaErrorInvalidValue;
+  Dirs dirs;
+  for (int d = 0; d < MAX_D; ++d) dirs.dx[d] = dirs.dy[d] = dirs.hq[d] = 0;
+  dirs.D = 1;
+  dirs.dx[0] = dx;
+  dirs.dy[0] = dy;
+  dirs.hq[0] = 1;
+  const unsigned mask_v = abs(dx) >= abs(dy) ? 1u : 0u;
+  if (N > 0) {
+    cudaStream_t s = (cudaStream_t)stream;
+    run_bits_kernel<unsigned char>
+        <<<dim3(Wp / TX, (Hp + TY - 1) / TY, N), THREADS, 0, s>>>(
+            (const unsigned char*)aligned, (unsigned short*)run, H, W, Hp, Wp,
+            dirs, mask_v);
+    pack_pixel_kernel<<<dim3((Wp + THREADS - 1) / THREADS, Hp, N), THREADS, 0,
+                        s>>>((const unsigned short*)run, (int*)out, Hp, Wp,
+                             dx, dy, cap);
   }
   return (int)cudaGetLastError();
 }

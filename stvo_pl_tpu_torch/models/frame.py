@@ -12,8 +12,12 @@ vectorized epipolar / disparity (points) or direction / overlap /
 disparity-ratio (lines) filters and back-projection under the same mask.
 
 Lines come from the one-pass multi-octave canvas detector
-(`lsd_octaves > 1`, the default).  The EDLine detector and the dense
-single-octave detector are not ported yet and raise.
+(`lsd_octaves > 1`, the default) or from the dense single-octave detector
+(`lsd_octaves <= 1`: `detect_lines_scaled` on the `lsd_scale`-resampled
+image, LBD on the full-resolution Sobel planes), whose run candidates come
+from either generator of ops/lsd.py (`per_direction`).  The EDLine
+detector is not ported yet and raises.  `extract_rgbd_features` is the
+RGB-D front end: one intensity image and a registered depth map per lane.
 """
 
 from __future__ import annotations
@@ -270,6 +274,107 @@ def _length_buckets(length: torch.Tensor, valid: torch.Tensor, cap: int):
     return order[..., :half], order[..., half:]
 
 
+class DenseField(NamedTuple):
+    """What the dense single-octave detector computes once for every image
+    of a batch: the level-line field of the detection image and its run
+    maps."""
+    src_hw: tuple          # (H0, W0) of the source images
+    ang: torch.Tensor      # [N, Hs, Ws] field of the resampled images
+    mag: torch.Tensor      # [N, Hs, Ws]
+    packed: torch.Tensor   # run maps, as ops/lsd.run_maps returns them
+    per_direction: bool    # the generator the maps come from
+
+
+def dense_field(im: torch.Tensor, cfg: VOConfig,
+                per_direction: bool = False) -> DenseField:
+    """The image-sized half of `detect_lines_scaled` for [N, H, W] images:
+    the `lsd_scale` resample (cv::LSD detects on a Gaussian-smoothed image
+    resampled by `scale`; sigma = sigma_scale for upsampling, sigma_scale /
+    scale for downsampling; the blur is composed into the resize), the
+    level-line field and the run kernel(s) over all N images."""
+    scale = float(cfg.lsd_scale)
+    H0, W0 = im.shape[-2:]
+    det_im = im
+    if scale != 1.0:
+        sigma = (cfg.lsd_sigma_scale / scale if scale < 1.0
+                 else cfg.lsd_sigma_scale)
+        det_im = resize_bilinear(im, int(round(H0 * scale)),
+                                 int(round(W0 * scale)), blur_sigma=sigma)
+    ang, mag = lsd.line_field(det_im)
+    packed = lsd.run_maps(ang, mag, cfg.lsd_n_dirs, cfg.lsd_ang_th,
+                          cfg.lsd_quant, per_direction)
+    return DenseField(src_hw=(H0, W0), ang=ang, mag=mag, packed=packed,
+                      per_direction=per_direction)
+
+
+def lines_from_field(fd: DenseField, min_line_length: float, cfg: VOConfig,
+                     lite: bool = False) -> lsd.LineSegments:
+    """The capacity-sized half of `detect_lines_scaled` for the images of
+    `fd`: candidates, merges, refit and validation in detection
+    coordinates, then the exact per-axis half-pixel-centre map back to the
+    source image (rounded output sizes make each axis' effective scale
+    differ slightly from cfg.lsd_scale).
+
+    `lite` halves the along-line refit samples (the right eye's lines feed
+    only stereo matching).  cv::LSD always validates a-contrario
+    (-log10(NFA) > 0); cfg.lsd_log_eps replaces that threshold only in
+    advanced-refinement mode (lsd_refine >= 2)."""
+    scale = float(cfg.lsd_scale)
+    segs = lsd.segments_from_runs(
+        fd.ang, fd.mag, fd.packed, min_line_length * scale,
+        capacity=cfg.line_capacity, n_dirs=cfg.lsd_n_dirs,
+        ang_th_deg=cfg.lsd_ang_th, density_th=cfg.lsd_density_th,
+        refine=not cfg.use_fld_lines, refine_samples=8 if lite else 16,
+        log_eps=(cfg.lsd_log_eps if cfg.lsd_refine >= 2 else 0.0),
+        per_direction=fd.per_direction)
+    if scale != 1.0:
+        H0, W0 = fd.src_hw
+        Hs, Ws = fd.mag.shape[-2:]
+        kw = dict(dtype=segs.sp.dtype, device=segs.sp.device)
+        inv = torch.tensor([W0 / Ws, H0 / Hs], **kw)
+        lim = torch.tensor([W0 - 1.0, H0 - 1.0], **kw)
+
+        def to_src(p):
+            return torch.minimum(
+                torch.clamp((p + 0.5) * inv - 0.5, min=0.0), lim)
+
+        segs = segs._replace(sp=to_src(segs.sp), ep=to_src(segs.ep),
+                             length=segs.length / scale)
+    return segs
+
+
+def detect_lines_scaled(im: torch.Tensor, min_line_length: float,
+                        cfg: VOConfig, lite: bool = False,
+                        per_direction: bool = False) -> lsd.LineSegments:
+    """Dense single-octave LSD detection on [N, H, W] images honoring
+    lsd_scale / lsd_sigma_scale: `dense_field` then `lines_from_field`."""
+    return lines_from_field(dense_field(im, cfg, per_direction),
+                            min_line_length, cfg, lite=lite)
+
+
+def _lbd_two_bucket(gx: torch.Tensor, gy: torch.Tensor,
+                    segs: lsd.LineSegments, cfg: VOConfig) -> torch.Tensor:
+    """LBD with length-adaptive along-line sampling, [N, K, 8] int32.
+
+    The longer half of the capacity gets cfg.lbd_long_samples samples, the
+    shorter half keeps the 8-sample grid; band statistics are mean / std
+    over samples, so both buckets' descriptors live in the same space."""
+    if cfg.lbd_long_samples <= lbd.N_SAMPLES:
+        return lbd.compute_lbd(gx, gy, segs.sp, segs.ep)[1]
+    N, cap = segs.sp.shape[:2]
+    li, si = _length_buckets(segs.length, segs.valid, cap)
+    desc = torch.zeros((N, cap, 8), dtype=torch.int32, device=gx.device)
+    for idx, n_samples in ((li, cfg.lbd_long_samples), (si, lbd.N_SAMPLES)):
+        _, d = lbd.compute_lbd(gx, gy, _take(segs.sp, idx),
+                               _take(segs.ep, idx), n_samples=n_samples)
+        desc = desc.scatter(1, idx[..., None].expand(-1, -1, 8), d)
+    return desc
+
+
+def _slice_field(fd: DenseField, sl: slice) -> DenseField:
+    return fd._replace(ang=fd.ang[sl], mag=fd.mag[sl], packed=fd.packed[sl])
+
+
 def _octave_images(im: torch.Tensor, n_oct: int) -> list[torch.Tensor]:
     """Ratio-2 Gaussian pyramid of [N, H, W] images (pyrDown equivalent:
     the antialiasing blur composed into the resize product,
@@ -499,22 +604,24 @@ def _slice_canvas(cv: OctaveCanvas, sl: slice) -> OctaveCanvas:
                        g2=cv.g2[sl])
 
 
-def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
-                            fast_th: torch.Tensor, min_line_length: float,
-                            cam: cam_ops.StereoCamera,
-                            cfg: VOConfig) -> FrameFeatures:
-    """Front end for B stereo pairs [B, H, W] with FAST thresholds [B] and
-    the line-length threshold in pixels: points and lines, both eyes in
-    one batch through every kernel."""
+def _refuse_edlines(cfg: VOConfig) -> None:
     if cfg.has_lines and cfg.use_edlines:
         raise NotImplementedError(
             "use_edlines=True: the EDLine detector is not ported yet "
-            "(ROADMAP item 12); use the default canvas LSD")
-    if cfg.has_lines and cfg.lsd_octaves <= 1:
-        raise NotImplementedError(
-            "lsd_octaves=1: the dense single-octave detector "
-            "(detect_lines_scaled) is not ported yet (ROADMAP item 12); "
-            "use lsd_octaves > 1")
+            "(ROADMAP item 12); use the LSD detectors")
+
+
+def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
+                            fast_th: torch.Tensor, min_line_length: float,
+                            cam: cam_ops.StereoCamera, cfg: VOConfig,
+                            per_direction: bool = False) -> FrameFeatures:
+    """Front end for B stereo pairs [B, H, W] with FAST thresholds [B] and
+    the line-length threshold in pixels: points and lines, both eyes in
+    one batch through every kernel.  `per_direction` selects the run
+    candidate generator of the dense single-octave detector
+    (`lsd_octaves <= 1`); the octave canvas always takes the all-direction
+    one."""
+    _refuse_edlines(cfg)
     B = img_l.shape[0]
     dev, dtype = img_l.device, img_l.dtype
     both = torch.cat([img_l, img_r])
@@ -527,7 +634,19 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
     else:
         points = empty_points(cfg.point_capacity, dtype, dev, (B,))
 
-    if cfg.has_lines:
+    if cfg.has_lines and cfg.lsd_octaves <= 1:
+        fd = dense_field(both, cfg, per_direction)
+        gx, gy = sobel(both)
+        eyes = []
+        for sl, lite in ((slice(0, B), False),
+                         (slice(B, 2 * B), cfg.lsd_right_lite)):
+            segs = lines_from_field(_slice_field(fd, sl), min_line_length,
+                                    cfg, lite=lite)
+            eyes.append((segs, _lbd_two_bucket(gx[sl], gy[sl], segs, cfg)))
+        (segs_l, ldesc_l), (segs_r, ldesc_r) = eyes
+        lines = match_stereo_lines(segs_l, ldesc_l, segs_r, ldesc_r, cam,
+                                   cfg)
+    elif cfg.has_lines:
         cv = octave_canvas(both, cfg)
         segs_l, octv_l, ldesc_l = lines_from_canvas(
             _slice_canvas(cv, slice(0, B)), min_line_length, cfg)
@@ -541,3 +660,80 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
         lines = empty_lines(cfg.line_capacity, dtype, dev, (B,))
     return FrameFeatures(points=points, lines=lines)
 
+
+
+def _sample_depth(depth: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Nearest-pixel lookup of depth [B, H, W] at uv [B, K, 2] (the
+    reference reads img_r.at<float>(y, x), src/stereoFrame.cpp:710)."""
+    H, W = depth.shape[-2:]
+    x = torch.clamp(torch.round(uv[..., 0]).to(torch.int64), 0, W - 1)
+    y = torch.clamp(torch.round(uv[..., 1]).to(torch.int64), 0, H - 1)
+    return lsd._gather2d(depth, y, x)
+
+
+def extract_rgbd_features(img: torch.Tensor, depth: torch.Tensor,
+                          fast_th: torch.Tensor, min_line_length: float,
+                          cam: cam_ops.StereoCamera, cfg: VOConfig,
+                          per_direction: bool = False) -> FrameFeatures:
+    """RGB-D front end for B lanes (extractRGBDFeatures,
+    src/stereoFrame.cpp:667-818): detect on the intensity images [B, H, W]
+    only; disparity comes from the registered metric depth maps [B, H, W]
+    (disp = fx b / depth; invalid pixels <= 0), gated by rgbd_min/max_depth
+    and min_disp.  Lines come from the dense detector on the image as it
+    is, whatever cfg.lsd_octaves says."""
+    _refuse_edlines(cfg)
+    B = img.shape[0]
+    dev, dtype = img.device, img.dtype
+    fxb = cam.fx * cam.b
+
+    def in_range(d):
+        return (d > cfg.rgbd_min_depth) & (d < cfg.rgbd_max_depth)
+
+    if cfg.has_points:
+        det = detect_points_multilevel(img, fast_th, cfg)
+        d = _sample_depth(depth, det.uv)
+        depth_ok = in_range(d)
+        disp = fxb / torch.where(depth_ok, d, torch.ones_like(d))
+        ok = det.valid & depth_ok & (disp >= cfg.min_disp)
+        P = cam_ops.back_project(cam, det.uv,
+                                 torch.where(ok, disp, torch.ones_like(disp)))
+        sigma2 = cfg.orb_scale_factor ** (-2.0 * det.level.to(dtype))
+        points = PointSet(uv=det.uv,
+                          disp=torch.where(ok, disp, torch.zeros_like(disp)),
+                          P=P, desc=det.desc, level=det.level, sigma2=sigma2,
+                          valid=ok)
+    else:
+        points = empty_points(cfg.point_capacity, dtype, dev, (B,))
+
+    if cfg.has_lines:
+        segs = lsd.detect_line_segments(
+            img, min_line_length, capacity=cfg.line_capacity,
+            n_dirs=cfg.lsd_n_dirs, ang_th_deg=cfg.lsd_ang_th,
+            quant=cfg.lsd_quant, density_th=cfg.lsd_density_th,
+            log_eps=(cfg.lsd_log_eps if cfg.lsd_refine >= 2 else -1.0),
+            per_direction=per_direction)
+        gx, gy = sobel(img)
+        ldesc = _lbd_two_bucket(gx, gy, segs, cfg)
+        ds = _sample_depth(depth, segs.sp)
+        de = _sample_depth(depth, segs.ep)
+        ok_d = in_range(ds) & in_range(de)
+        one, zero = torch.ones_like(ds), torch.zeros_like(ds)
+        disp_s = fxb / torch.where(ok_d, ds, one)
+        disp_e = fxb / torch.where(ok_d, de, one)
+        ok = (segs.valid & ok_d & (disp_s >= cfg.min_disp)
+              & (disp_e >= cfg.min_disp))
+        lines = LineSet(
+            spl=segs.sp, epl=segs.ep, sdisp=torch.where(ok, disp_s, zero),
+            edisp=torch.where(ok, disp_e, zero),
+            sP=cam_ops.back_project(cam, segs.sp,
+                                    torch.where(ok, disp_s, one)),
+            eP=cam_ops.back_project(cam, segs.ep,
+                                    torch.where(ok, disp_e, one)),
+            le=_line_coeffs(segs.sp, segs.ep), angle=segs.angle, desc=ldesc,
+            level=torch.zeros(segs.sp.shape[:-1], dtype=torch.int32,
+                              device=dev),
+            sigma2=torch.ones(segs.sp.shape[:-1], dtype=dtype, device=dev),
+            valid=ok)
+    else:
+        lines = empty_lines(cfg.line_capacity, dtype, dev, (B,))
+    return FrameFeatures(points=points, lines=lines)

@@ -7,7 +7,11 @@ src/stereoFrameHandler.cpp).
 covers initialize, f2f tracking, optimizePose (models/optimizer.py), the
 adaptive-FAST controller and the keyframe hooks.  Every field of VOState
 carries the lane axis first.  `vo_step` runs one unbatched lane and
-`vo_scan` a whole sequence as a Python loop.
+`vo_scan` a whole sequence as a Python loop; `step_lanes_rgbd` /
+`vo_step_rgbd` take an intensity image and a registered depth map in place
+of the stereo pair.  `per_direction` (an argument, not a config field)
+selects the run candidate generator of the dense single-octave line
+detector, see ops/lsd.py.
 """
 
 from __future__ import annotations
@@ -205,22 +209,41 @@ def keyframe_update(state: VOState, est: optimizer.PoseEstimate,
 # one full VO step
 # ---------------------------------------------------------------------------
 
-def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-               cam: cam_ops.StereoCamera,
-               cfg: VOConfig) -> tuple[VOState, StepTelemetry]:
-    """Process B rectified stereo pairs [B, H, W] for B lanes of state."""
+def _check_images(state: VOState, cam: cam_ops.StereoCamera, **images):
     dev = state.Tfw.device
-    for name, im in (("imgs_l", imgs_l), ("imgs_r", imgs_r)):
+    for name, im in images.items():
         if im.device != dev:
             raise ValueError(f"{name} is on {im.device}, the state on {dev}")
         if im.shape != (state.Tfw.shape[0], cam.height, cam.width):
             raise ValueError(f"{name} has shape {tuple(im.shape)}, expected "
                              f"({state.Tfw.shape[0]}, {cam.height}, "
                              f"{cam.width})")
+
+
+def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+               cam: cam_ops.StereoCamera, cfg: VOConfig,
+               per_direction: bool = False) -> tuple[VOState, StepTelemetry]:
+    """Process B rectified stereo pairs [B, H, W] for B lanes of state."""
+    _check_images(state, cam, imgs_l=imgs_l, imgs_r=imgs_r)
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_stereo_features(
         imgs_l.to(torch.float32), imgs_r.to(torch.float32), state.fast_th,
-        llength_th, cam, cfg)
+        llength_th, cam, cfg, per_direction=per_direction)
+    return _track_and_update(state, feats, cam, cfg)
+
+
+def step_lanes_rgbd(state: VOState, imgs: torch.Tensor, depths: torch.Tensor,
+                    cam: cam_ops.StereoCamera, cfg: VOConfig,
+                    per_direction: bool = False
+                    ) -> tuple[VOState, StepTelemetry]:
+    """RGB-D variant of `step_lanes`: B intensity images and registered
+    metric depth maps [B, H, W] (reference extractRGBDFeatures path,
+    src/stereoFrame.cpp:667-818)."""
+    _check_images(state, cam, imgs=imgs, depths=depths)
+    llength_th = cfg.min_line_length * min(cam.width, cam.height)
+    feats = frame_mod.extract_rgbd_features(
+        imgs.to(torch.float32), depths.to(torch.float32), state.fast_th,
+        llength_th, cam, cfg, per_direction=per_direction)
     return _track_and_update(state, feats, cam, cfg)
 
 
@@ -283,20 +306,33 @@ def _map(fn, tree):
 
 
 def vo_step(state: VOState, img_l: torch.Tensor, img_r: torch.Tensor,
-            cam: cam_ops.StereoCamera,
-            cfg: VOConfig) -> tuple[VOState, StepTelemetry]:
+            cam: cam_ops.StereoCamera, cfg: VOConfig,
+            per_direction: bool = False) -> tuple[VOState, StepTelemetry]:
     """One unbatched step: [H, W] stereo pair, state without lane axis."""
     s, t = step_lanes(_map(lambda x: x[None], state), img_l[None],
-                      img_r[None], cam, cfg)
+                      img_r[None], cam, cfg, per_direction=per_direction)
+    return _map(lambda x: x[0], s), _map(lambda x: x[0], t)
+
+
+def vo_step_rgbd(state: VOState, img: torch.Tensor, depth: torch.Tensor,
+                 cam: cam_ops.StereoCamera, cfg: VOConfig,
+                 per_direction: bool = False
+                 ) -> tuple[VOState, StepTelemetry]:
+    """One unbatched RGB-D step: [H, W] intensity and depth."""
+    s, t = step_lanes_rgbd(_map(lambda x: x[None], state), img[None],
+                           depth[None], cam, cfg,
+                           per_direction=per_direction)
     return _map(lambda x: x[0], s), _map(lambda x: x[0], t)
 
 
 def vo_scan(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
-            cam: cam_ops.StereoCamera, cfg: VOConfig):
+            cam: cam_ops.StereoCamera, cfg: VOConfig,
+            per_direction: bool = False):
     """A whole sequence [T, H, W] through `vo_step`; telemetry stacked over
     frames."""
     telems = []
     for i in range(imgs_l.shape[0]):
-        state, t = vo_step(state, imgs_l[i], imgs_r[i], cam, cfg)
+        state, t = vo_step(state, imgs_l[i], imgs_r[i], cam, cfg,
+                           per_direction=per_direction)
         telems.append(t)
     return state, StepTelemetry(*[torch.stack(f) for f in zip(*telems)])

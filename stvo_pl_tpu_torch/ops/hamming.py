@@ -1,6 +1,5 @@
 """Batched Hamming-distance matrices for 256-bit binary descriptors
-(port of stvo_pl_tpu/ops/hamming.py without its Pallas kernel B5, which
-the main path does not use).
+(port of stvo_pl_tpu/ops/hamming.py).
 
 Descriptors are [..., N, 8] int32 words.  Right shifts of int32 are
 arithmetic, so every extracted field is masked after the shift.
@@ -8,6 +7,11 @@ arithmetic, so every extracted field is masked after the shift.
   * `hamming_matrix_mxu`: bits unpacked to +/-1 and ONE matrix product,
     d = (256 - <a, b>) / 2.  Exact: every partial sum is an integer of
     magnitude <= 256 (bf16 operands on the GPU, float32 on the CPU).
+  * `hamming_matrix_popc`: XOR + popcount as a CUDA kernel
+    (`csrc/hamming.cu`, the port of the Pallas kernel
+    hamming_matrix_pallas) on CUDA tensors, any N and M; CPU tensors take
+    its plain version `hamming_matrix_xla`.  `hamming_matrix(...,
+    use_mxu=False)` is this path.
   * `hamming_matrix_xla`: XOR + popcount, the plain formulation.
   * HAMMING2 (WTA_K = 3/4): the same two formulations over 2-bit cells.
 """
@@ -15,6 +19,8 @@ arithmetic, so every extracted field is masked after the shift.
 from __future__ import annotations
 
 import torch
+
+from stvo_pl_tpu_torch import build
 
 DESC_WORDS = 8
 DESC_BITS = 32 * DESC_WORDS
@@ -64,10 +70,53 @@ def hamming_matrix_xla(desc1: torch.Tensor,
     return total.to(torch.int32)
 
 
+def hamming_matrix_popc(desc1: torch.Tensor,
+                        desc2: torch.Tensor) -> torch.Tensor:
+    """[..., N, 8] x [..., M, 8] int32 words -> [..., N, M] int32 by XOR +
+    popcount, the leading dims broadcast against each other.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel (counted in
+    `hamming_matrix_popc.launches`)."""
+    for d in (desc1, desc2):
+        if d.ndim < 2 or d.shape[-1] != DESC_WORDS or d.dtype != torch.int32:
+            raise ValueError(f"hamming_matrix_popc wants [..., N, "
+                             f"{DESC_WORDS}] int32 descriptors, got "
+                             f"{tuple(d.shape)} {d.dtype}")
+    if desc1.device != desc2.device:
+        raise ValueError(f"hamming_matrix_popc: descriptors on "
+                         f"{desc1.device} and {desc2.device}")
+    if desc1.device.type == "cpu":
+        return hamming_matrix_xla(desc1, desc2)
+    if desc1.device.type != "cuda":
+        raise ValueError(f"hamming_matrix_popc: unsupported device "
+                         f"{desc1.device}")
+    lead = torch.broadcast_shapes(desc1.shape[:-2], desc2.shape[:-2])
+    N, M = desc1.shape[-2], desc2.shape[-2]
+    a = desc1.expand(lead + (N, DESC_WORDS)).reshape(-1, N, DESC_WORDS)
+    b = desc2.expand(lead + (M, DESC_WORDS)).reshape(-1, M, DESC_WORDS)
+    a, b = a.contiguous(), b.contiguous()
+    B = a.shape[0]
+    out = torch.empty((B, N, M), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out.reshape(lead + (N, M))
+    lib = build.library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.stvo_hamming_popc(a.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), B, N, M, stream)
+    build.check(rc, "hamming_matrix_popc")
+    hamming_matrix_popc.launches += 1
+    return out.reshape(lead + (N, M))
+
+
+hamming_matrix_popc.launches = 0
+
+
 def hamming_matrix(desc1, desc2, use_mxu: bool = True) -> torch.Tensor:
+    """The bf16 product, or with `use_mxu=False` XOR + popcount (the CUDA
+    kernel on CUDA tensors)."""
     if use_mxu:
         return hamming_matrix_mxu(desc1, desc2)
-    return hamming_matrix_xla(desc1, desc2)
+    return hamming_matrix_popc(desc1, desc2)
 
 
 def unpack_cells_onehot(desc: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""All-direction aligned-run scoring for the dense line detector.
+"""Aligned-run scoring for the dense line detector: all directions in one
+launch (`run_pack_multi`) and one direction per launch (`run_pack`).
 
 `run_pack_multi` launches the CUDA kernel `csrc/lsd_run_pack.cu` on CUDA
 tensors; `run_pack_multi_plain` is its plain PyTorch twin, used for CPU
@@ -18,6 +19,14 @@ run of a tile together with its position.  Every shift is zero-filled at
 the border of the PADDED domain Hp x Wp (Hp = round_up(H, 64), Wp =
 round_up(W, 128)): thickening may set pixels in the pad and runs may
 continue into it, which is part of the function.
+
+`run_pack` / `run_pack_plain` are the one-direction form (the JAX
+package's _run_pack_pallas), a function of its own: a 0/1 aligned mask in,
+every pixel's own word `hops * 64 + (63 - (y % 8) * 8 - x % 8)` out,
+without hop weight and without the 8-row maximum, on the padded domain
+Hp = round_up(H, 8) (not 64), Wp = round_up(W, 128).  The smaller padded
+height changes which runs exist near the bottom edge, so it is not the
+D = 1 case of `run_pack_multi`.
 """
 
 from __future__ import annotations
@@ -57,37 +66,54 @@ def _shift(x: torch.Tensor, sy: int, sx: int) -> torch.Tensor:
     return F.pad(core, (max(-sx, 0), max(sx, 0), max(-sy, 0), max(sy, 0)))
 
 
+def _run_words(a: torch.Tensor, dx: int, dy: int, hq: int,
+               max_doublings: int) -> torch.Tensor:
+    """The reference's program for one direction on an already padded 0/1
+    i32 domain [N, Hp, Wp]: thicken, dilate, gap-close, pointer doubling,
+    run starts, packing.  Returns every pixel's word
+    (hops * hq) * 64 + (63 - (y % 8) * 8 - x % 8) at run starts, 0
+    elsewhere."""
+    Hp, Wp = a.shape[-2:]
+    yy = torch.arange(Hp, device=a.device, dtype=torch.int32)[:, None]
+    xx = torch.arange(Wp, device=a.device, dtype=torch.int32)[None, :]
+    tail = 63 - ((yy % 8) * 8 + xx % 8)
+    if abs(dx) >= abs(dy):
+        thick = a | _shift(a, 1, 0) | _shift(a, -1, 0)
+    else:
+        thick = a | _shift(a, 0, 1) | _shift(a, 0, -1)
+    dil = thick | _shift(thick, dy, dx) | _shift(thick, -dy, -dx)
+    run = (dil & _shift(dil, dy, dx) & _shift(dil, -dy, -dx)) | thick
+    f = run
+    for k in range(max_doublings):
+        h = 1 << k
+        f = torch.where(f == h, f + _shift(f, dy * h, dx * h), f)
+    is_start = run & (1 - _shift(run, -dy, -dx))
+    return torch.where(is_start == 1, (f * hq) * 64 + tail, 0)
+
+
 def run_pack_multi_plain(bits: torch.Tensor, steps,
                          max_doublings: int = 8) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the reference's program
-    (thicken, dilate, gap-close, pointer doubling, run starts, packing,
-    8-row maximum) on the zero-padded domain, one direction at a time."""
+    """Plain PyTorch version of the all-direction kernel: the reference's
+    program on the zero-padded domain, one direction at a time, then the
+    8-row maximum."""
     N, H, W = bits.shape
     D, Ht, Wp = packed_shape(H, W, len(steps))
-    Hp = Ht * 8
-    bits_p = F.pad(bits, (0, Wp - W, 0, Hp - H))
-    dev = bits.device
-    yy = torch.arange(Hp, device=dev, dtype=torch.int32)[:, None]
-    xx = torch.arange(Wp, device=dev, dtype=torch.int32)[None, :]
-    tail = 63 - ((yy % 8) * 8 + xx % 8)
+    bits_p = F.pad(bits, (0, Wp - W, 0, Ht * 8 - H))
     out = []
     for di, (dx, dy) in enumerate(steps):
-        a = (bits_p >> di) & 1
-        if abs(dx) >= abs(dy):
-            thick = a | _shift(a, 1, 0) | _shift(a, -1, 0)
-        else:
-            thick = a | _shift(a, 0, 1) | _shift(a, 0, -1)
-        dil = thick | _shift(thick, dy, dx) | _shift(thick, -dy, -dx)
-        run = (dil & _shift(dil, dy, dx) & _shift(dil, -dy, -dx)) | thick
-        f = run
-        for k in range(max_doublings):
-            h = 1 << k
-            f = torch.where(f == h, f + _shift(f, dy * h, dx * h), f)
-        is_start = run & (1 - _shift(run, -dy, -dx))
-        packed = torch.where(is_start == 1,
-                             (f * _hop_q(dx, dy)) * 64 + tail, 0)
+        packed = _run_words((bits_p >> di) & 1, dx, dy, _hop_q(dx, dy),
+                            max_doublings)
         out.append(packed.reshape(N, Ht, 8, Wp).amax(dim=2))
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+def _check_steps(what: str, steps, max_doublings: int) -> None:
+    if any(max(abs(dx), abs(dy)) > MAX_STEP or (dx, dy) == (0, 0)
+           for dx, dy in steps):
+        raise ValueError(f"{what}: steps must be non-zero with "
+                         f"|dx|, |dy| <= {MAX_STEP}, got {steps}")
+    if not 0 <= max_doublings <= 8:
+        raise ValueError(f"{what}: max_doublings must be in 0..8")
 
 
 def run_pack_multi(bits: torch.Tensor, steps,
@@ -103,12 +129,7 @@ def run_pack_multi(bits: torch.Tensor, steps,
     if not 1 <= len(steps) <= MAX_DIRS:
         raise ValueError(f"run_pack_multi takes 1..{MAX_DIRS} directions, "
                          f"got {len(steps)}")
-    if any(max(abs(dx), abs(dy)) > MAX_STEP or (dx, dy) == (0, 0)
-           for dx, dy in steps):
-        raise ValueError(f"run_pack_multi: steps must be non-zero with "
-                         f"|dx|, |dy| <= {MAX_STEP}, got {steps}")
-    if not 0 <= max_doublings <= 8:
-        raise ValueError("run_pack_multi: max_doublings must be in 0..8")
+    _check_steps("run_pack_multi", steps, max_doublings)
     if bits.device.type == "cpu":
         return run_pack_multi_plain(bits, steps, max_doublings)
     if bits.device.type != "cuda":
@@ -138,3 +159,61 @@ def run_pack_multi(bits: torch.Tensor, steps,
 
 
 run_pack_multi.launches = 0
+
+
+def run_pack_shape(H: int, W: int) -> tuple[int, int]:
+    """(Hp, Wp) of the one-direction packed map of one [H, W] mask."""
+    return _round_up(H, 8), _round_up(W, 128)
+
+
+_MASK_DTYPES = (torch.bool, torch.int8, torch.int32)
+
+
+def run_pack_plain(aligned: torch.Tensor, dx: int, dy: int,
+                   max_doublings: int = 8) -> torch.Tensor:
+    """Plain PyTorch version of the one-direction kernel: the reference's
+    program on the zero-padded Hp x Wp domain, every pixel's word kept."""
+    N, H, W = aligned.shape
+    Hp, Wp = run_pack_shape(H, W)
+    a = F.pad((aligned != 0).to(torch.int32), (0, Wp - W, 0, Hp - H))
+    return _run_words(a, dx, dy, 1, max_doublings).to(torch.int32)
+
+
+def run_pack(aligned: torch.Tensor, dx: int, dy: int,
+             max_doublings: int = 8) -> torch.Tensor:
+    """[N, H, W] 0/1 aligned masks (bool, int8 or int32) ->
+    [N, Hp, Wp] i32 packed run maps of the ONE integer direction (dx, dy):
+    hops * 64 + (63 - (y % 8) * 8 - x % 8) at run starts, 0 elsewhere.  One
+    launch covers all N images.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (counted in `run_pack.launches`)."""
+    dx, dy = int(dx), int(dy)
+    if aligned.ndim != 3 or aligned.dtype not in _MASK_DTYPES:
+        raise ValueError(f"run_pack wants an [N, H, W] bool / int8 / int32 "
+                         f"mask, got {tuple(aligned.shape)} {aligned.dtype}")
+    _check_steps("run_pack", ((dx, dy),), max_doublings)
+    if aligned.device.type == "cpu":
+        return run_pack_plain(aligned, dx, dy, max_doublings)
+    if aligned.device.type != "cuda":
+        raise ValueError(f"run_pack: unsupported device {aligned.device}")
+    # one byte per pixel for the kernel; bool and int8 masks pass as they are
+    if aligned.dtype == torch.int32:
+        aligned = aligned != 0
+    mask = aligned.contiguous().view(torch.uint8)
+    N, H, W = mask.shape
+    Hp, Wp = run_pack_shape(H, W)
+    out = torch.empty((N, Hp, Wp), dtype=torch.int32, device=mask.device)
+    if N == 0:
+        return out
+    scratch = torch.empty((N, Hp, Wp), dtype=torch.int16, device=mask.device)
+    lib = build.library()
+    with torch.cuda.device(mask.device):
+        stream = torch.cuda.current_stream(mask.device).cuda_stream
+        rc = lib.stvo_lsd_run_pack(
+            mask.data_ptr(), scratch.data_ptr(), out.data_ptr(), N, H, W, Hp,
+            Wp, dx, dy, 1 << max_doublings, stream)
+    build.check(rc, "run_pack")
+    run_pack.launches += 1
+    return out
+
+
+run_pack.launches = 0

@@ -21,8 +21,10 @@ def init_batched_state(cfg: VOConfig, batch: int,
 
 def vo_step_batched(state: frontend.VOState, imgs_l: torch.Tensor,
                     imgs_r: torch.Tensor, cam: cam_ops.StereoCamera,
-                    cfg: VOConfig):
+                    cfg: VOConfig, per_direction: bool = False):
     """One step for B sequences at once: [B, H, W] stereo stacks.  All
     lanes and both eyes share each kernel launch (FAST and patches per
-    pyramid level, the line-run kernel once per step)."""
-    return frontend.step_lanes(state, imgs_l, imgs_r, cam, cfg)
+    pyramid level, the line-run kernel once per step; with the dense
+    single-octave detector and `per_direction=True`, once per direction)."""
+    return frontend.step_lanes(state, imgs_l, imgs_r, cam, cfg,
+                               per_direction=per_direction)

@@ -3,6 +3,10 @@ of stvo_pl_tpu/utils/synthetic.py): a random 3-D world of textured point
 landmarks and bright line segments rendered into rectified stereo pairs,
 all frames of a sequence at once, on the device of the scene's tensors.
 
+`render_depth` gives the left eye's metric depth maps of the same
+sequence, for the RGB-D front end (an addition of the port: the JAX
+package's renderer has no depth output).
+
 `make_scene` draws from a `torch.Generator`, so the same seed gives other
 scenes than the JAX package's; to render the JAX package's scene, build a
 `Scene` from its arrays.
@@ -182,3 +186,61 @@ def render_sequence(scene: Scene, poses: torch.Tensor,
         return torch.clamp(img, 0.0, 255.0)
 
     return eye(0.0), eye(cam.b)
+
+
+def render_depth(scene: Scene, poses: torch.Tensor,
+                 cam: cam_ops.StereoCamera) -> torch.Tensor:
+    """[T, 4, 4] camera-to-world poses -> [T, H, W] metric depth of the
+    left eye's frames as a registered depth camera would give it: the z of
+    the nearest landmark whose stamp covers the pixel, or of the nearest
+    line within 1.5 px (1 / z interpolated along the projected segment),
+    and 0 (no measurement) where the frame shows only background."""
+    H, W = cam.height, cam.width
+    dev = scene.P.device
+    T_ = poses.shape[0]
+    T_cw = se3.inverse_se3(poses)
+    Pc = se3.transform_points(T_cw, scene.P)
+    sAc = se3.transform_points(T_cw, scene.sA)
+    sBc = se3.transform_points(T_cw, scene.sB)
+    far = torch.tensor([0.0, 0.0, 1e3], device=dev)
+    inf = torch.full((), float("inf"), device=dev)
+
+    # landmarks: the stamp window of _splat_points, nearest z wins
+    z = Pc[..., 2]
+    uv = cam_ops.project(cam, torch.where(z[..., None] > 0.5, Pc, far))
+    fl = torch.floor(uv)
+    u0 = fl[..., 0].to(torch.int64) - STAMP // 2
+    v0 = fl[..., 1].to(torch.int64) - STAMP // 2
+    gi = torch.arange(STAMP, device=dev)
+    yy = v0[..., None, None] + gi[:, None]
+    xx = u0[..., None, None] + gi[None, :]
+    inside = ((z > 0.5)[..., None, None] & (yy >= 0) & (yy < H) & (xx >= 0)
+              & (xx < W))
+    frame = torch.arange(T_, device=dev)[:, None, None, None]
+    flat_idx = (frame * (H * W) + torch.clamp(yy, 0, H - 1) * W
+                + torch.clamp(xx, 0, W - 1)).reshape(-1)
+    zz = torch.where(inside, z[..., None, None], inf).reshape(-1)
+    depth = torch.full((T_ * H * W,), float("inf"), device=dev)
+    depth = depth.scatter_reduce(0, flat_idx, zz, "amin").reshape(T_, H, W)
+
+    # lines: the distance field of _draw_lines
+    vis = (sAc[..., 2] > 0.5) & (sBc[..., 2] > 0.5)
+    sa_uv = cam_ops.project(cam, torch.where(vis[..., None], sAc, far))
+    sb_uv = cam_ops.project(cam, torch.where(vis[..., None], sBc, far))
+    py = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    px = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    for li in range(sa_uv.shape[1]):
+        a = sa_uv[:, li, :, None, None]
+        d = sb_uv[:, li, :, None, None] - a
+        L2 = torch.clamp(torch.sum(d * d, dim=1), min=1e-6)
+        t = ((px - a[:, 0]) * d[:, 0] + (py - a[:, 1]) * d[:, 1]) / L2
+        t = torch.clamp(t, 0.0, 1.0)
+        dist2 = ((px - a[:, 0] - t * d[:, 0]) ** 2
+                 + (py - a[:, 1] - t * d[:, 1]) ** 2)
+        za = sAc[:, li, 2, None, None]
+        zb = sBc[:, li, 2, None, None]
+        zl = 1.0 / ((1.0 - t) / za + t / zb)
+        on = (dist2 <= 1.5 ** 2) & vis[:, li, None, None]
+        depth = torch.where(on, torch.minimum(depth, zl), depth)
+    return torch.where(torch.isfinite(depth), depth,
+                       torch.zeros_like(depth))

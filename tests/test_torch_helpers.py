@@ -38,17 +38,20 @@ class GateOnTpu:
 
 
 @contextlib.contextmanager
-def jax_kernel_branch():
+def jax_kernel_branch(lsd: bool = True):
     """The JAX package on its kernel branches (FAST and LSD) with
     `pallas_call` in interpret mode.  `detect_line_segments` and `vo_step`
     are jitted and read the backend while tracing, so the traces made
-    before and under the patches are dropped on both sides."""
+    before and under the patches are dropped on both sides.  With
+    `lsd=False` only FAST takes its kernel branch and the line detector
+    stays on the per-direction generator it runs off the TPU."""
     from jax.experimental import pallas as pl
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pl, "pallas_call",
                    functools.partial(pl.pallas_call, interpret=True))
         mp.setattr(jfast, "jax", GateOnTpu())
-        mp.setattr(jlsd, "jax", GateOnTpu())
+        if lsd:
+            mp.setattr(jlsd, "jax", GateOnTpu())
         jax.clear_caches()
         try:
             yield

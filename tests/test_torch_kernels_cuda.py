@@ -88,3 +88,64 @@ def test_run_pack_multi_kernel_equals_plain(cuda, shape, n_dirs, density,
     for md in (0, 3):
         assert torch.equal(lsd_kernel.run_pack_multi(bits, steps, md),
                            lsd_kernel.run_pack_multi_plain(bits, steps, md))
+
+
+@pytest.mark.parametrize("shape,step,density,border,dtype", [
+    ((2, 70, 150), (1, 0), 0.3, True, torch.bool),      # axis-aligned
+    ((2, 97, 130), (-4, 1), 0.4, True, torch.int8),     # H % 8 != 0, dx < 0
+    ((3, 64, 128), (1, 4), 0.4, False, torch.int32),    # no padding at all
+    ((2, 45, 260), (-3, 4), 0.5, True, torch.bool),     # ragged last tile
+    ((16, 370, 1226), (4, 3), 0.05, True, torch.bool),  # the dense path
+])
+def test_run_pack_kernel_equals_plain(cuda, shape, step, density, border,
+                                      dtype):
+    """Uniform random 0/1 masks; `border` keeps the set bits of the last
+    row and column, from which runs continue into the padded domain."""
+    from stvo_pl_tpu_torch.ops import lsd_kernel
+    g = torch.Generator(device=cuda).manual_seed(3)
+    mask = torch.rand(shape, generator=g, device=cuda) < density
+    if not border:
+        mask[:, -1, :] = False
+        mask[:, :, -1] = False
+    mask = mask.to(dtype)
+    dx, dy = step
+    before = lsd_kernel.run_pack.launches
+    k = lsd_kernel.run_pack(mask, dx, dy)
+    p = lsd_kernel.run_pack_plain(mask, dx, dy)
+    torch.cuda.synchronize()
+    assert lsd_kernel.run_pack.launches == before + 1
+    assert k.shape == (shape[0],) + lsd_kernel.run_pack_shape(*shape[1:])
+    assert torch.equal(k, p), int((k != p).sum())
+    assert int((k > 0).sum()) > 0
+    for md in (0, 3):
+        assert torch.equal(lsd_kernel.run_pack(mask, dx, dy, md),
+                           lsd_kernel.run_pack_plain(mask, dx, dy, md))
+
+
+@pytest.mark.parametrize("shape1,shape2", [
+    ((300, 8), (257, 8)),               # ragged tiles on both sides
+    ((256, 8), (512, 8)),
+    ((8, 1200, 8), (8, 1200, 8)),       # the VO step's point matching
+    ((3, 1, 70, 8), (2, 90, 8)),        # leading dims broadcast
+    ((1, 8), (1, 8)),
+])
+def test_hamming_popc_kernel_equals_plain(cuda, shape1, shape2):
+    from stvo_pl_tpu_torch.ops import hamming
+    g = torch.Generator(device=cuda).manual_seed(4)
+    lo, hi = -2 ** 31, 2 ** 31 - 1
+    d1 = torch.randint(lo, hi, shape1, generator=g, device=cuda,
+                       dtype=torch.int32)
+    d2 = torch.randint(lo, hi, shape2, generator=g, device=cuda,
+                       dtype=torch.int32)
+    d1[..., 0, :] = d2.reshape(-1, 8)[0]      # pairs at distance 0
+    d2[..., 0, :] = d2.reshape(-1, 8)[0]
+    before = hamming.hamming_matrix_popc.launches
+    k = hamming.hamming_matrix(d1, d2, use_mxu=False)
+    torch.cuda.synchronize()
+    assert hamming.hamming_matrix_popc.launches == before + 1
+    p = hamming.hamming_matrix_xla(d1, d2)
+    assert k.dtype == torch.int32 and k.shape == p.shape
+    assert torch.equal(k, p), int((k != p).sum())
+    assert torch.equal(k, hamming.hamming_matrix_mxu(d1, d2))
+    assert int(k[..., 0, 0].max()) == 0
+    assert k.numel() == 1 or int(k.max()) > 100

@@ -211,8 +211,18 @@ def test_extract_stereo_features_with_lines(frame):
     ({"lsd_octaves": 1}, "lsd_octaves=1"),
 ])
 def test_unported_line_detectors_raise(frame, overrides, match):
+    """The EDLine detector raises, naming its roadmap item; the dense
+    single-octave detector, which used to, runs: level 0 for every line."""
     cfg = TCfg(**SMALL, **overrides)
     th = torch.full((1,), 20.0)
-    with pytest.raises(NotImplementedError, match=match):
-        tframe.extract_stereo_features(tt(frame[:1]), tt(frame[1:]), th,
-                                       MIN_LEN, TCAM, cfg)
+    args = (tt(frame[:1]), tt(frame[1:]), th, MIN_LEN, TCAM, cfg)
+    if cfg.use_edlines:
+        with pytest.raises(NotImplementedError, match=match):
+            tframe.extract_stereo_features(*args)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+            tframe.extract_stereo_features(*args)
+    else:
+        lines = tframe.extract_stereo_features(*args).lines
+        assert lines.spl.shape == (1, cfg.line_capacity, 2)
+        assert lines.desc.dtype == torch.int32 and not lines.level.any()
+        assert bool(torch.isfinite(lines.sP).all())

@@ -75,12 +75,17 @@ def test_lines_and_bad_inputs_are_refused():
     from stvo_pl_tpu_torch.parallel import batched
     cam = tcam.StereoCamera(160.0, 160.0, 60.0, 40.0, 0.3, 120, 80)
     img = torch.zeros((2, 80, 120))
-    for kw, what in (({"use_edlines": True}, "use_edlines"),
-                     ({"lsd_octaves": 1}, "lsd_octaves=1")):
-        cfg = VOConfig(**kw)
+    cfg = VOConfig(use_edlines=True)
+    st = batched.init_batched_state(cfg, 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="use_edlines"):
+        batched.vo_step_batched(st, img, img, cam, cfg)
+    # the dense single-octave detector runs, with either generator
+    cfg = VOConfig(lsd_octaves=1, orb_nfeatures=100, lsd_nfeatures=16)
+    for per_direction in (False, True):
         st = batched.init_batched_state(cfg, 2, device="cpu")
-        with pytest.raises(NotImplementedError, match=what):
-            batched.vo_step_batched(st, img, img, cam, cfg)
+        st, tel = batched.vo_step_batched(st, img, img, cam, cfg,
+                                          per_direction=per_direction)
+        assert bool(st.initialized.all()) and tel.Tfw.shape == (2, 4, 4)
     st = batched.init_batched_state(VOConfig(has_lines=False), 2,
                                     device="cpu")
     with pytest.raises(ValueError, match="shape"):

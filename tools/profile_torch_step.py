@@ -1,7 +1,10 @@
-"""Where the time of the port's batched default (point + line) VO step
-goes, on a GPU.
+"""Where the time of the port's batched point + line VO step goes, on a
+GPU: the default configuration, or with `--dense` the dense single-octave
+line detector (lsd_octaves=1) with the run candidate generator that
+`--generator` names.
 
-    python3 tools/profile_torch_step.py [--steps 3]
+    python3 tools/profile_torch_step.py [--steps 3] [--dense]
+        [--generator all_direction|per_direction]
 
 Renders chip_smoke.py's 8 KITTI-sized lanes, warms the step up, then
 (1) times the step's phases with the host clock around synchronized calls
@@ -46,7 +49,16 @@ BATCH = 8
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--dense", action="store_true",
+                    help="profile VOConfig(lsd_octaves=1)")
+    ap.add_argument("--generator", default="all_direction",
+                    choices=("all_direction", "per_direction"),
+                    help="run candidate generator of the dense detector")
     args = ap.parse_args()
+    if args.generator == "per_direction" and not args.dense:
+        ap.error("--generator per_direction needs --dense: the octave "
+                 "canvas always takes the all-direction generator")
+    per_direction = args.generator == "per_direction"
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_step: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,7 +69,7 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     cam = cam_ops.StereoCamera(fx=718.856, fy=718.856, cx=613.0, cy=185.0,
                                b=0.5372, width=1226, height=370)
-    cfg = VOConfig()
+    cfg = VOConfig(lsd_octaves=1) if args.dense else VOConfig()
     llength = cfg.min_line_length * min(cam.width, cam.height)
     n = 2 + 3 * args.steps + 1
     poses = synthetic.smooth_trajectory(n, speed=0.8, device=dev)
@@ -71,10 +83,14 @@ def main() -> None:
         R.append(right)
     L, R = torch.stack(L), torch.stack(R)
 
+    def step(state, i):
+        return batched.vo_step_batched(
+            state, L[:, i].contiguous(), R[:, i].contiguous(), cam, cfg,
+            per_direction=per_direction)
+
     state = batched.init_batched_state(cfg, BATCH)
     for i in range(2):
-        state, _ = batched.vo_step_batched(state, L[:, i].contiguous(),
-                                           R[:, i].contiguous(), cam, cfg)
+        state, _ = step(state, i)
     torch.cuda.synchronize()
 
     # (1) phases, host clock around synchronized calls
@@ -83,6 +99,11 @@ def main() -> None:
               "track_and_update": 0.0}
 
     def line_half(img_l, img_r):
+        if args.dense:
+            return frame_mod.extract_stereo_features(
+                img_l, img_r, state.fast_th, llength, cam,
+                cfg.replace(has_points=False),
+                per_direction=per_direction).lines
         B = img_l.shape[0]
         cv = frame_mod.octave_canvas(torch.cat([img_l, img_r]), cfg)
         sl, ol, dl = frame_mod.lines_from_canvas(
@@ -104,7 +125,7 @@ def main() -> None:
     for i in range(2, 2 + args.steps):
         feats = clock("front_end", frame_mod.extract_stereo_features,
                       L[:, i].contiguous(), R[:, i].contiguous(),
-                      state.fast_th, llength, cam, cfg)
+                      state.fast_th, llength, cam, cfg, per_direction)
         clock("front_end_lines", line_half, L[:, i].contiguous(),
               R[:, i].contiguous())
         pm = clock("f2f_match", frontend.match_f2f_points,
@@ -122,8 +143,7 @@ def main() -> None:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(s0, s0 + args.steps):
-        state, _ = batched.vo_step_batched(
-            state, L[:, i].contiguous(), R[:, i].contiguous(), cam, cfg)
+        state, _ = step(state, i)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -135,8 +155,7 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(s0, s0 + args.steps):
-            state, _ = batched.vo_step_batched(
-                state, L[:, i].contiguous(), R[:, i].contiguous(), cam, cfg)
+            state, _ = step(state, i)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     events = prof.key_averages()
@@ -149,6 +168,8 @@ def main() -> None:
     top_cpu = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
     out = {
         "card": smi, "lanes": BATCH, "steps": args.steps,
+        "config": "lsd_octaves=1" if args.dense else "default",
+        "generator": args.generator,
         "height": cam.height, "width": cam.width,
         "phase_ms_per_step": phases,
         "step_ms": step_ms,
