@@ -5,7 +5,10 @@
 Builds the CUDA kernels from stvo_pl_tpu_torch/csrc, holds each kernel
 (FAST pack, patch gather, the all-direction and the one-direction LSD run
 pack, XOR + popcount Hamming) against its plain PyTorch version at the
-shapes of the paths that run it, then drives the default point + line VO
+shapes of the paths that run it (FAST also on a constant image, a dot
+field and a 4x4 tiling; the all-direction run pack also on runs longer
+than its cap in all 16 directions and with caps 1 and 8), then drives the
+default point + line VO
 step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
 synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
 checks the trajectories.  Over the first 6 frames of the same sequences it
@@ -65,6 +68,7 @@ POINTS_ONLY_FRAMES = 6      # depth of every VO phase but the main one
 PARITY_FRAMES = 3
 DENSE_PARITY_FRAMES = 2
 INDEX_IMAGES = 64           # the matcher phase: 64 x 300 index rows
+LONG_RUN_SIZE = 1280        # B3's long-run masks: 300 hops of (1, 4) fit
 
 
 def fail(msg: str) -> None:
@@ -107,6 +111,46 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fast_positive_share(img: torch.Tensor) -> float:
+    """Share of the pixels of [N, H, W] whose FAST response is positive
+    (circle pixels outside the image read as 0)."""
+    from stvo_pl_tpu_torch.ops import fast as fast_ops
+    H, W = img.shape[1:]
+    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    diffs = [p[:, 3 + dy:3 + dy + H, 3 + dx:3 + dx + W] - img
+             for dy, dx in fast_ops.CIRCLE.tolist()]
+    return float((fast_ops.fast_response(diffs) > 0).float().mean())
+
+
+def long_run_bits(gen: torch.Generator, n: int, size: int,
+                  steps) -> torch.Tensor:
+    """[n, size, size] direction bitmasks: 2% noise per direction, and per
+    image and direction 8 straight chains of that direction's bit, 40 to
+    300 hops long (the first always 300), from random starts that keep
+    them inside the image; the last row and column are set at every third
+    pixel."""
+    dev = gen.device
+    bits = torch.zeros((n, size, size), dtype=torch.int32, device=dev)
+    for d, (dx, dy) in enumerate(steps):
+        bits |= (torch.rand(bits.shape, generator=gen, device=dev)
+                 < 0.02).to(torch.int32) << d
+        for i in range(n):
+            for c in range(8):
+                hops = 300 if c == 0 else int(torch.randint(
+                    40, 301, (1,), generator=gen, device=dev))
+                span_y, span_x = (hops - 1) * abs(dy), (hops - 1) * abs(dx)
+                y0 = int(torch.randint(0, size - span_y, (1,), generator=gen,
+                                       device=dev)) + (span_y if dy < 0 else 0)
+                x0 = int(torch.randint(0, size - span_x, (1,), generator=gen,
+                                       device=dev)) + (span_x if dx < 0 else 0)
+                k = torch.arange(hops, device=dev)
+                ys, xs = y0 + k * dy, x0 + k * dx
+                bits[i, ys, xs] |= 1 << d
+    bits[:, -1, ::3] |= (1 << len(steps)) - 1
+    bits[:, ::3, -1] |= (1 << len(steps)) - 1
+    return bits
 
 
 def covered_pixels(y0: torch.Tensor, x0: torch.Tensor, H: int, W: int,
@@ -202,18 +246,42 @@ def main() -> None:
     fast_rows = []
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, err=0.0)
     b1_bound_by = set()
+
+    def check_fast(name, x):
+        k = fast_kernel.fast_pack(x, cfg.orb_edge_th)
+        p = fast_kernel.fast_pack_plain(x, cfg.orb_edge_th)
+        torch.cuda.synchronize()
+        tot["err"] = max(tot["err"], float((k.long() - p.long()).abs().max()))
+        require(torch.equal(k, p), f"B1 {name}: kernel != plain at "
+                f"{int((k != p).sum())} words")
+        return k
+
+    # where the kernel's survivor lists are empty or full: a constant
+    # image (no response anywhere), bright dots 4 px apart on a dark
+    # field (every dot a survivor), and a 4x4 tiling where 69% of the
+    # pixels have a positive response
+    N0, H0, W0 = levels[0].shape
+    dots = torch.full((N0, H0, W0), 10.0, device=dev)
+    dots[:, 2::4, 3::4] = 200.0
+    tile = torch.tensor([[11, 9, 6, 15], [4, 7, 5, 1], [10, 8, 0, 3],
+                         [13, 2, 12, 14]], dtype=torch.float32, device=dev)
+    pattern = (tile * 10).repeat(N0, H0 // 4 + 1, W0 // 4 + 1)[:, :H0, :W0]
+    design = {}
+    for name, x in (("constant", torch.full((N0, H0, W0), 77.0, device=dev)),
+                    ("dots", dots), ("pattern", pattern.contiguous())):
+        k = check_fast(name, x)
+        design[name] = dict(positive_share=fast_positive_share(x),
+                            survivors=int((k > 0).sum()))
+    require(design["constant"]["survivors"] == 0,
+            "B1 constant: the kernel found corners")
+    require(design["dots"]["survivors"] >= N0 * ((H0 - 40) // 4)
+            * ((W0 - 40) // 4), "B1 dots: a dot was not kept")
     for lv, img in enumerate(levels):
         img = img.contiguous()
         noise = (torch.rand(img.shape, generator=gnoise, device=dev)
                  * 255.0).contiguous()
         for name, x in (("rendered", img), ("noise", noise)):
-            k = fast_kernel.fast_pack(x, cfg.orb_edge_th)
-            p = fast_kernel.fast_pack_plain(x, cfg.orb_edge_th)
-            torch.cuda.synchronize()
-            err = float((k.long() - p.long()).abs().max())
-            tot["err"] = max(tot["err"], err)
-            require(torch.equal(k, p), f"B1 level {lv} {name}: kernel != "
-                    f"plain at {int((k != p).sum())} words")
+            check_fast(f"level {lv} {name}", x)
         N, H, W = img.shape
         Hs, Wp = fast_kernel.packed_shape(H, W)
         ms = time_ms(lambda: fast_kernel.fast_pack(img, cfg.orb_edge_th), 50)
@@ -227,8 +295,9 @@ def main() -> None:
         tot["bound_ms"] += bnd
         fast_rows.append(dict(level=lv, shape=[N, H, W], ms=ms,
                               plain_ms=plain, bound_us=bnd * 1e3,
-                              bound_by=by))
-    emit("B1_fast_pack", equal=True, levels=fast_rows,
+                              bound_by=by,
+                              positive_share=fast_positive_share(img)))
+    emit("B1_fast_pack", equal=True, levels=fast_rows, design_cases=design,
          step_ms=tot["ms"], step_plain_ms=tot["plain_ms"],
          step_bound_us=tot["bound_ms"] * 1e3)
     b1 = dict(name="fast_pack", route="cuda",
@@ -338,6 +407,29 @@ def main() -> None:
         if name != "rendered":
             require(bool((x[:, -1, :] != 0).any() & (x[:, :, -1] != 0).any()),
                     f"B3 {name}: no set bits at the border")
+    # straight runs longer than the cap in each of the 16 directions: they
+    # cross many tiles, start and end inside tiles, and reach the last row
+    # and column; and the main-path bitmasks with caps 1 and 8
+    all_steps = lsd.direction_steps(16)
+    long_bits = long_run_bits(gnoise, 2, LONG_RUN_SIZE, all_steps)
+    b3_long = {}
+    for name, x, st, md in (
+            [("long_runs", long_bits, all_steps, m) for m in (8, 3, 0)]
+            + [("rendered", bits, steps, m) for m in (3, 0)]):
+        k = lsd_kernel.run_pack_multi(x, st, md)
+        p = lsd_kernel.run_pack_multi_plain(x, st, md)
+        torch.cuda.synchronize()
+        b3_err = max(b3_err, float((k.long() - p.long()).abs().max()))
+        require(torch.equal(k, p), f"B3 {name} max_doublings={md}: kernel "
+                f"!= plain at {int((k != p).sum())} words")
+        if name == "long_runs":
+            hq = torch.tensor([lsd_kernel._hop_q(*s) for s in st],
+                              device=dev)[None, :, None, None]
+            full = ((k >> 6) == hq * (1 << md)).flatten(2).any(-1)
+            require(bool(full.all()), f"B3 long_runs max_doublings={md}: "
+                    f"a direction has no run at the cap")
+            b3_long[md] = int((k > 0).sum())
+    del long_bits
     ms = time_ms(lambda: lsd_kernel.run_pack_multi(bits, steps), 20)
     plain = time_ms(lambda: lsd_kernel.run_pack_multi_plain(bits, steps), 2)
     noise_ms = time_ms(lambda: lsd_kernel.run_pack_multi(cases[1][1], steps),
@@ -346,6 +438,8 @@ def main() -> None:
                        N * Ht * 8 * Wp * D * RUN_PACK_OPS_PER_PIXEL_DIR)
     set_share = float((bits != 0).float().mean())
     emit("B3_run_pack_multi", equal=True, cases=[c[0] for c in cases],
+         long_run_words=b3_long, long_run_shape=[2, LONG_RUN_SIZE,
+                                                 LONG_RUN_SIZE],
          shape=[N, H, W], dirs=n_dirs, out_shape=[N, D, Ht, Wp],
          set_pixel_share=set_share, ms=ms, noise_ms=noise_ms, plain_ms=plain,
          bound_us=bnd * 1e3, bound_by=by)

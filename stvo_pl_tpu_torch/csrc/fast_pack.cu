@@ -9,19 +9,37 @@
 // padded shape [N, ceil(H/40)*40, round_up(W,128)] that the selection glue
 // (ops/fast_kernel.py select_from_packed) pools.
 //
-// What bounds it on an H100: operations, by a small margin over bytes.  Per
-// pixel it reads one float and writes one int (about 154 MB per VO step at
-// B=8 over the four pyramid levels, 46 us at 3.35 TB/s), and the response
-// needs about 204 float32 min/max/sub operations per pixel when the arc
-// windows share subtrees (55 us at 67 TFLOP/s).  This simple version
-// recomputes each 9-arc (about 300 operations per pixel).  The design
-// keeps every intermediate out of device memory:
-// one block per (image, 32-row x 128-column tile) stages the tile plus a
-// 4-pixel halo in shared memory (40 x 136 floats), computes the response
-// for the tile plus a 1-pixel ring in shared memory (34 x 130), and forms
-// the offsets, the border mask, NMS and the packed word in registers.
-// Device memory sees one read of the image (plus halo re-reads) and one
-// write of the packed map.
+// What bounds it on an H100: instruction issue.  Per pixel it reads one
+// float and writes one int (about 154 MB per VO step at B=8 over the four
+// pyramid levels, 46 us at 3.35 TB/s), and the response is a few hundred
+// min/max operations, which issue at half the float32 rate.  The design
+// cuts the instructions per pixel:
+//
+// - The response works on order-preserving integer keys of the pixel
+//   values (key(f) = bits(f) ^ ((bits(f) >> 31) & 0x7FFFFFFF): signed
+//   integer order = float order for finite values), so Hopper's
+//   three-input integer min/max (VIMNMX3, __vimin3_s32 / __vimax3_s32)
+//   does two float min/max operations per instruction.  Each arc side is
+//   16 three-wide windows + 16 nine-wide windows + an 8-instruction
+//   maximum: 40 instructions, 80 for both sides, against about 300 when
+//   every 9-arc is recomputed with two-input min/max.
+// - The circle differences are never formed: rounding is monotone, so
+//   min over an arc of fl(nb - c) = fl(min over the arc of nb - c), and
+//   the response is max(fl(B - c), fl(c - D)) with B = max over arcs of
+//   the arc minimum and D = min over arcs of the arc maximum of the raw
+//   neighbours.  Same bits as the reference for finite inputs.
+// - The NMS surface (border mask + tie-break epsilon) is formed once per
+//   response pixel, not nine times per candidate.
+// - The sub-pixel fit and the packed word (two IEEE divisions) run only
+//   for NMS survivors, which each warp compacts into a list first, so a
+//   warp runs that code once per 32 survivors instead of once per row of
+//   pixels that holds one.
+//
+// One block per (image, 32-row x 128-column tile) stages the tile plus a
+// 4-pixel halo in shared memory (40 x 136 keys), computes the response for
+// the tile plus a 1-pixel ring (34 x 130), then the NMS surface in the
+// keys' place, and the packed words.  Device memory sees one read of the
+// image (plus halo re-reads) and one write of the packed map.
 //
 // Bit-exactness: compiled with -fmad=false, and the lines whose rounding
 // matters (parabola, quantization, tie-break epsilon) use __f*_rn
@@ -44,11 +62,13 @@ constexpr int SW = TX + 2 * HALO;  // staged image columns
 constexpr int RH = TY + 2;         // response rows (tile + 1-px ring)
 constexpr int RW = TX + 2;
 constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int PER_WARP = TY * TX / WARPS;  // output pixels of one warp
 
-// 16-pixel Bresenham circle of radius 3 in angular order (dy, dx); the
-// same order as ops/fast.py CIRCLE.
-__constant__ int c_dy[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-__constant__ int c_dx[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
+// order-preserving float <-> int key; the map is its own inverse
+__device__ __forceinline__ int fkey(int bits) {
+  return bits ^ ((bits >> 31) & 0x7FFFFFFF);
+}
 
 __device__ __forceinline__ float masked_se(float rp, int y, int x, int H,
                                            int W, int edge) {
@@ -70,11 +90,35 @@ __device__ __forceinline__ int quant_offset(float l, float c, float r) {
   return (int)__fadd_rn(__fmul_rn(__fadd_rn(o, 0.5f), 31.0f), 0.5f);
 }
 
+// max over the 16 circular 9-windows of the window minimum (kMin = true),
+// or min over them of the window maximum, of 16 keys
+template <bool kMin>
+__device__ __forceinline__ int arc_extreme(const int (&k)[16]) {
+  auto in3 = [](int a, int b, int c) {
+    return kMin ? __vimin3_s32(a, b, c) : __vimax3_s32(a, b, c);
+  };
+  auto out3 = [](int a, int b, int c) {
+    return kMin ? __vimax3_s32(a, b, c) : __vimin3_s32(a, b, c);
+  };
+  int m3[16], w[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) m3[i] = in3(k[i], k[(i + 1) & 15], k[(i + 2) & 15]);
+#pragma unroll
+  for (int s = 0; s < 16; ++s) w[s] = in3(m3[s], m3[(s + 3) & 15], m3[(s + 6) & 15]);
+  const int a = out3(w[0], w[1], w[2]), b = out3(w[3], w[4], w[5]);
+  const int c = out3(w[6], w[7], w[8]), d = out3(w[9], w[10], w[11]);
+  const int e = out3(w[12], w[13], w[14]);
+  const int ab = out3(a, b, c), de = out3(d, e, w[15]);
+  return kMin ? max(ab, de) : min(ab, de);
+}
+
 __global__ void __launch_bounds__(THREADS)
 fast_pack_kernel(const float* __restrict__ img, int* __restrict__ out,
                  int H, int W, int Hout, int Wp, int edge) {
-  __shared__ float s_img[SH][SW];
+  // keys of the staged image, then (after the response) the NMS surface
+  __shared__ int s_buf[SH * SW];
   __shared__ float s_rp[RH][RW];
+  __shared__ unsigned short s_list[WARPS][PER_WARP];
   const int n = blockIdx.z;
   const int y0 = blockIdx.y * TY;
   const int x0 = blockIdx.x * TX;
@@ -83,66 +127,75 @@ fast_pack_kernel(const float* __restrict__ img, int* __restrict__ out,
   for (int i = threadIdx.x; i < SH * SW; i += THREADS) {
     int r = i / SW, c = i % SW;
     int y = y0 - HALO + r, x = x0 - HALO + c;
-    s_img[r][c] = (y >= 0 && y < H && x >= 0 && x < W)
-                      ? im[(size_t)y * W + x] : 0.f;
+    float v = (y >= 0 && y < H && x >= 0 && x < W) ? im[(size_t)y * W + x]
+                                                     : 0.f;
+    s_buf[i] = fkey(__float_as_int(v));
   }
   __syncthreads();
 
-  // FAST response at image (y0 - 1 + r, x0 - 1 + c): the max over the 16
-  // contiguous 9-arcs of min(diff) (bright) and of -max(diff) (dark).
-  // min/max are exact, so any evaluation order gives the reference bits.
+  // FAST response at image (y0 - 1 + r, x0 - 1 + c): max(fl(B - ctr),
+  // fl(ctr - D)) over the keys of the circle (see the header).
   for (int i = threadIdx.x; i < RH * RW; i += THREADS) {
     int r = i / RW, c = i % RW;
-    float ctr = s_img[r + 3][c + 3];
-    float d[16];
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      d[k] = __fsub_rn(s_img[r + 3 + c_dy[k]][c + 3 + c_dx[k]], ctr);
-    float bright = -INFINITY, dark = INFINITY;
-#pragma unroll
-    for (int s = 0; s < 16; ++s) {
-      float mn = d[s], mx = d[s];
-#pragma unroll
-      for (int j = 1; j < 9; ++j) {
-        mn = fminf(mn, d[(s + j) & 15]);
-        mx = fmaxf(mx, d[(s + j) & 15]);
-      }
-      bright = fmaxf(bright, mn);
-      dark = fminf(dark, mx);
-    }
-    float resp = fmaxf(bright, -dark);
+    const int* p = s_buf + (r + 3) * SW + (c + 3);
+    // the 16-pixel Bresenham circle of radius 3 in angular order, as
+    // ops/fast.py CIRCLE: (dy, dx) = (-3, 0), (-3, 1), (-2, 2), ...
+    const int k[16] = {p[-3 * SW],     p[-3 * SW + 1], p[-2 * SW + 2],
+                       p[-SW + 3],     p[3],           p[SW + 3],
+                       p[2 * SW + 2],  p[3 * SW + 1],  p[3 * SW],
+                       p[3 * SW - 1],  p[2 * SW - 2],  p[SW - 3],
+                       p[-3],          p[-SW - 3],     p[-2 * SW - 2],
+                       p[-3 * SW - 1]};
+    const float ctr = __int_as_float(fkey(p[0]));
+    const float bf = __int_as_float(fkey(arc_extreme<true>(k)));
+    const float df = __int_as_float(fkey(arc_extreme<false>(k)));
+    const float resp = fmaxf(__fsub_rn(bf, ctr), __fsub_rn(ctr, df));
     s_rp[r][c] = resp > 0.f ? resp : 0.f;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < TY * TX; i += THREADS) {
-    int r = i / TX, c = i % TX;
-    int y = y0 + r, x = x0 + c;
-    if (y >= Hout || x >= Wp) continue;
-    int word = 0;
-    float rc = s_rp[r + 1][c + 1];
-    bool inside = (y >= edge) && (y < H - edge) && (x >= edge) &&
-                  (x < W - edge);
-    if (rc > 0.f && inside) {
-      float sc = masked_se(rc, y, x, H, W, edge);
-      float nmax = -INFINITY;
-#pragma unroll
-      for (int dy = -1; dy <= 1; ++dy)
-#pragma unroll
-        for (int dx = -1; dx <= 1; ++dx) {
-          if (dy == 0 && dx == 0) continue;
-          nmax = fmaxf(nmax, masked_se(s_rp[r + 1 + dy][c + 1 + dx],
-                                       y + dy, x + dx, H, W, edge));
-        }
-      if (sc >= nmax) {
-        int oqx = quant_offset(s_rp[r + 1][c], rc, s_rp[r + 1][c + 2]);
-        int oqy = quant_offset(s_rp[r][c + 1], rc, s_rp[r + 2][c + 1]);
-        int q = (int)__fmul_rn(rc, 256.0f);
-        int idx = (y % 4) * 4 + x % 4;
-        word = q * 16384 + (15 - idx) * 1024 + oqy * 32 + oqx;
-      }
-    }
-    out[((size_t)n * Hout + y) * Wp + x] = word;
+  float* s_se = reinterpret_cast<float*>(s_buf);    // [RH][RW]
+  for (int i = threadIdx.x; i < RH * RW; i += THREADS) {
+    int r = i / RW, c = i % RW;
+    s_se[i] = masked_se(s_rp[r][c], y0 - 1 + r, x0 - 1 + c, H, W, edge);
+  }
+  __syncthreads();
+
+  // NMS: zeros are written at once, survivors are listed per warp
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int listed = 0;
+  for (int i0 = warp * PER_WARP; i0 < (warp + 1) * PER_WARP; i0 += 32) {
+    const int i = i0 + lane;
+    const int r = i / TX, c = i % TX;
+    const int y = y0 + r, x = x0 + c;
+    const float* q = s_se + (r + 1) * RW + (c + 1);
+    const float sc = q[0];
+    float nmax = fmaxf(fmaxf(q[-RW - 1], q[-RW]), q[-RW + 1]);
+    nmax = fmaxf(nmax, fmaxf(q[-1], q[1]));
+    nmax = fmaxf(nmax, fmaxf(fmaxf(q[RW - 1], q[RW]), q[RW + 1]));
+    const bool valid = y < Hout;
+    const bool inside = (y >= edge) && (y < H - edge) && (x >= edge) &&
+                        (x < W - edge);
+    const bool keep = valid && inside && s_rp[r + 1][c + 1] > 0.f &&
+                      sc >= nmax;
+    if (valid && !keep) out[((size_t)n * Hout + y) * Wp + x] = 0;
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, keep);
+    if (keep) s_list[warp][listed + __popc(m & ((1u << lane) - 1u))] =
+        (unsigned short)i;
+    listed += __popc(m);
+  }
+  __syncwarp();
+  for (int j = lane; j < listed; j += 32) {
+    const int i = s_list[warp][j];
+    const int r = i / TX, c = i % TX;
+    const int y = y0 + r, x = x0 + c;
+    const float rc = s_rp[r + 1][c + 1];
+    int oqx = quant_offset(s_rp[r + 1][c], rc, s_rp[r + 1][c + 2]);
+    int oqy = quant_offset(s_rp[r][c + 1], rc, s_rp[r + 2][c + 1]);
+    int qs = (int)__fmul_rn(rc, 256.0f);
+    int idx = (y % 4) * 4 + x % 4;
+    out[((size_t)n * Hout + y) * Wp + x] =
+        qs * 16384 + (15 - idx) * 1024 + oqy * 32 + oqx;
   }
 }
 

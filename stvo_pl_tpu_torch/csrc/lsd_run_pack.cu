@@ -17,24 +17,33 @@
 //
 // The reference holds a whole padded canvas on chip and gets f by 8 rounds
 // of pointer doubling over whole-image rolls, which gives exactly
-// min(L, 2^8).  An SM's shared memory cannot hold a canvas, so the same
-// function is computed in two passes:
+// min(L, 2^8).  Here two passes compute the same function:
 //
-//   1. run_bits_kernel: one block per (image, 32 x 128 tile).  The tile of
-//      the bitmask plus a 9-px halo goes to shared memory (low 16 bits:
-//      D <= 16), the thick words of all directions are formed there at
-//      once (only two perpendicular axes exist), and each pixel's D run
-//      bits leave as one 16-bit word.  |dx|, |dy| <= 4 bounds the halo.
-//   2. pack_kernel: one thread per (image, 8-row group, column).  It finds
-//      the run starts in its 8 pixels and walks each run forward, at most
-//      `cap` hops, through the run words (23.6 MB at the main-path shape,
-//      so the walks are served by L2).  The 8-row maximum stays in a
-//      register: no atomics, the output is written once, coalesced.
+//   1. run_planes_kernel: one block per (image, 64 x 128 tile).  Warp
+//      ballots turn the bitmask tile plus a 9-px halo into one 32-bit
+//      plane word per (direction, row, 32 columns) in shared memory; the
+//      thick, dilated and gap-closed run bits are then formed 32 pixels
+//      per instruction (funnel shifts across neighbouring words for the
+//      column offsets, |dx|, |dy| <= 4), and written as run planes
+//      [N, D, Hp, Wp/32] (1 bit per pixel and direction: 11.8 MB at the
+//      main-path shape).  The block also zero-fills its part of the
+//      output.
+//   2. chain_pack_kernel: the run length is a reverse scan along each
+//      chain of the direction,
+//          f(p) = run(p) ? min(1 + f(p + step), cap) : 0,
+//      done on bits: a warp takes 32 chains in tiles of 32 steps, loads a
+//      tile's run bits as 32 row words (addresses that never depend on the
+//      data) and transposes them across the warp, so each lane holds 32
+//      steps of its chain in one word; inside the tile a run's length is a
+//      count of trailing ones, and a run that leaves the tile adds the
+//      carry of the tile before (see the pass's own comment).  Run starts
+//      go to the 8-row maximum by atomicMax (about 3% of the pixels of a
+//      rendered canvas are starts; they are the pass's whole cost).
 //
 // All arithmetic is integer, so the result equals the reference bit for
-// bit.  What bounds it on an H100: about as many bytes (input words read
-// once, output words written once) as operations; the walks make the work
-// depend on the data (total hops = run pixels below the cap).
+// bit, for every cap = 2^k, k <= 8.  What bounds it on an H100: bytes
+// (input words read once, output words written once); the operations of
+// pass 1 are a few per pixel and direction, those of pass 2 about two.
 //
 // The directions, their hop weights hq and D are arguments, so one build
 // serves every direction count.
@@ -45,11 +54,12 @@
 // without hop weight and without the 8-row maximum.  Replaces the TPU kernel
 // stvo_pl_tpu/ops/lsd_kernel.py::_run_pack_pallas (body _make_kernel), which
 // the per-direction candidate generator of the dense detector launches once
-// per direction.  It shares pass 1 (run_bits_kernel with D = 1; the padded
-// height need not be a multiple of the tile, so tile rows beyond Hp are
-// outside the domain and are not written) and has a pass 2 of its own,
-// pack_pixel_kernel, one thread per pixel.  Bytes bound it: 1 in, 4 out per
-// pixel against about 17 integer operations.
+// per direction.  Pass 1, run_bits_kernel, writes each pixel's run bit as a
+// 16-bit word from a shared-memory tile (the padded height need not be a
+// multiple of the tile, so tile rows beyond Hp are outside the domain and
+// are not written); pass 2, pack_pixel_kernel, walks each run start, one
+// thread per pixel.  Bytes bound it: 1 in, 4 out per pixel against about
+// 17 integer operations.
 
 #include <cuda_runtime.h>
 
@@ -59,12 +69,8 @@ namespace {
 
 constexpr int MAX_D = 16;
 constexpr int MAX_STEP = 4;
-constexpr int TY = 32, TX = 128;          // tile of the padded domain
 constexpr int HT = 2 * MAX_STEP;          // thick halo: p +- 2 * step
 constexpr int HA = HT + 1;                // bitmask halo: one more for perp
-constexpr int AY = TY + 2 * HA, AX = TX + 2 * HA;
-constexpr int TTY = TY + 2 * HT, TTX = TX + 2 * HT;
-constexpr int THREADS = 256;
 
 struct Dirs {
   int D;
@@ -77,23 +83,349 @@ __device__ __forceinline__ bool in_dom(int y, int x, int Hp, int Wp) {
   return (unsigned)y < (unsigned)Hp && (unsigned)x < (unsigned)Wp;
 }
 
-// the low 16 direction bits of a bitmask pixel / bit 0 of a 0/1 mask pixel
-__device__ __forceinline__ unsigned load_bits(int v) {
-  return (unsigned)v & 0xFFFFu;
-}
-__device__ __forceinline__ unsigned load_bits(unsigned char v) {
-  return v != 0 ? 1u : 0u;
+// ---- the all-direction kernel, pass 1: run planes ------------------------
+
+constexpr int PY = 64, PX = 128;          // tile of the padded domain
+constexpr int PW = PX / 32;               // plane words of a tile row
+constexpr int PWW = PW + 2;               // ... with one word each side
+constexpr int PTR = PY + 2 * HT;          // thick-plane rows
+constexpr int PAR = PTR + 2;              // bitmask-plane rows
+constexpr int P_THREADS = 512;
+
+__host__ __device__ constexpr int planes_smem(int D) {
+  return D * (PAR + PTR) * PWW * 4;
 }
 
-template <typename In>
+// bits j = plane[column x_w + j + shift] of one plane row, shift in
+// [-8, 8], from the row's words w - 1, w, w + 1
+__device__ __forceinline__ unsigned shifted(const unsigned* row, int w,
+                                            int shift) {
+  if (shift > 0) return __funnelshift_r(row[w], row[w + 1], shift);
+  if (shift < 0) return __funnelshift_r(row[w - 1], row[w], 32 + shift);
+  return row[w];
+}
+
+// the bits j of a word at columns x_w + j for which x_w + j + shift lies in
+// [0, Wp) (tiles are whole words, so only the first and last word clip)
+__device__ __forceinline__ unsigned col_mask(int x_w, int shift, int Wp) {
+  if (x_w + shift < 0) return ~0u << (-shift);
+  if (x_w + 31 + shift >= Wp) return ~0u >> shift;
+  return ~0u;
+}
+
+__global__ void __launch_bounds__(P_THREADS)
+run_planes_kernel(const int* __restrict__ bits, unsigned* __restrict__ planes,
+                  int* __restrict__ out, int H, int W, int Hp, int Wp,
+                  Dirs dirs, unsigned mask_v) {
+  extern __shared__ unsigned smem[];
+  const int D = dirs.D;
+  unsigned* Ap = smem;                              // [D][PAR][PWW]
+  unsigned* Tp = smem + D * PAR * PWW;              // [D][PTR][PWW]
+  const int n = blockIdx.z;
+  const int y0 = blockIdx.y * PY, x0 = blockIdx.x * PX;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int* im = bits + (size_t)n * H * W;
+
+  // bitmask planes: word wi of a row covers columns x0 - 32 + 32 wi + j;
+  // only the tile and its 9-px halo are read.  Each warp issues the loads
+  // of LOADS row words before it ballots them, so their latencies overlap.
+  constexpr int LOADS = 16, WARPS = P_THREADS / 32;
+  const unsigned dmask = (1u << D) - 1u;        // D <= 16
+  for (int t0 = warp; t0 < PAR * PWW; t0 += WARPS * LOADS) {
+    unsigned a[LOADS];
+#pragma unroll
+    for (int b = 0; b < LOADS; ++b) {
+      const int task = t0 + b * WARPS;
+      const int ra = task / PWW, wi = task % PWW;
+      const int y = y0 - HA + ra, x = x0 - 32 + wi * 32 + lane;
+      a[b] = 0;
+      if (task < PAR * PWW && (unsigned)y < (unsigned)H &&
+          (unsigned)x < (unsigned)W && x >= x0 - HA && x < x0 + PX + HA)
+        a[b] = (unsigned)__ldg(im + (size_t)y * W + x);
+    }
+#pragma unroll
+    for (int b = 0; b < LOADS; ++b) {
+      const int task = t0 + b * WARPS;
+      unsigned mine = 0;
+      // ballots only for the directions present in these 32 pixels (few:
+      // most row words hold no set bit at all)
+      for (unsigned act = __reduce_or_sync(0xFFFFFFFFu, a[b]) & dmask; act;
+           act &= act - 1) {
+        const int d = __ffs(act) - 1;
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, (a[b] >> d) & 1u);
+        mine = lane == d ? m : mine;
+      }
+      if (lane < D && task < PAR * PWW) Ap[lane * PAR * PWW + task] = mine;
+    }
+  }
+  __syncthreads();
+
+  // thick planes, zero outside the padded domain
+  for (int i = threadIdx.x; i < D * PTR * PWW; i += P_THREADS) {
+    const int d = i / (PTR * PWW), rt = (i / PWW) % PTR, wi = i % PWW;
+    const int y = y0 - HT + rt;
+    const bool outside = (unsigned)y >= (unsigned)Hp ||
+                         (wi == 0 && x0 == 0) ||
+                         (wi == PWW - 1 && x0 + PX == Wp);
+    unsigned v = 0;
+    if (!outside) {
+      const unsigned* A = Ap + (d * PAR + rt + 1) * PWW;
+      const unsigned a = A[wi];
+      if ((mask_v >> d) & 1u) {
+        v = a | A[wi - PWW] | A[wi + PWW];
+      } else {
+        const unsigned l = wi > 0 ? A[wi - 1] : 0u;
+        const unsigned r = wi < PWW - 1 ? A[wi + 1] : 0u;
+        v = a | ((a << 1) | (l >> 31)) | ((a >> 1) | (r << 31));
+      }
+    }
+    Tp[i] = v;
+  }
+  __syncthreads();
+
+  // run planes of the tile
+  const int WW = Wp / 32;
+  for (int i = threadIdx.x; i < D * PY * PW; i += P_THREADS) {
+    const int d = i / (PY * PW), r = (i / PW) % PY, wo = i % PW;
+    const int dx = dirs.dx[d], dy = dirs.dy[d];
+    const int y = y0 + r, x_w = x0 + wo * 32, w = wo + 1;
+    const unsigned* T = Tp + (d * PTR + r + HT) * PWW;
+    const unsigned t0 = T[w];
+    const unsigned tm1 = shifted(T - dy * PWW, w, -dx);
+    const unsigned tm2 = shifted(T - 2 * dy * PWW, w, -2 * dx);
+    const unsigned tp1 = shifted(T + dy * PWW, w, dx);
+    const unsigned tp2 = shifted(T + 2 * dy * PWW, w, 2 * dx);
+    const unsigned dom_m =
+        (unsigned)(y - dy) < (unsigned)Hp ? col_mask(x_w, -dx, Wp) : 0u;
+    const unsigned dom_p =
+        (unsigned)(y + dy) < (unsigned)Hp ? col_mask(x_w, dx, Wp) : 0u;
+    const unsigned dil0 = t0 | tm1 | tp1;
+    const unsigned dilm = (tm2 | tm1 | t0) & dom_m;
+    const unsigned dilp = (t0 | tp1 | tp2) & dom_p;
+    planes[(((size_t)n * D + d) * Hp + y) * WW + x_w / 32] =
+        (dil0 & dilm & dilp) | t0;
+  }
+
+  // zero-fill this tile's 8 row groups of every direction's output
+  const int Ht = Hp / 8;
+  for (int i = threadIdx.x; i < D * (PY / 8) * (PX / 4); i += P_THREADS) {
+    const int d = i / ((PY / 8) * (PX / 4)), g = (i / (PX / 4)) % (PY / 8);
+    const int c4 = i % (PX / 4);
+    int4* o = reinterpret_cast<int4*>(
+        out + (((size_t)n * D + d) * Ht + y0 / 8 + g) * Wp + x0);
+    o[c4] = make_int4(0, 0, 0, 0);
+  }
+}
+
+// ---- the all-direction kernel, pass 2: reverse scans along the chains ----
+//
+// Chains of one direction: the major axis u is the rows when dy != 0 (step
+// su = dy, |dy| = DM), the columns when dy == 0 (su = dx); v is the other
+// axis, of length V, and a step moves v by sv (dx, or 0 for dy == 0).
+// u' = su > 0 ? u : U - 1 - u makes every step go to larger u'.  Chain t,
+// residue rho visits (u' = q * DM + rho, v = (t + sv * q) mod V) for
+// q = 0, 1, ...: every (u', v) lies on exactly one (t, rho) and its
+// successor along the step is the chain's next element, unless v + sv
+// leaves [0, V) (a break: the real chain ends at the domain edge and t
+// continues with another one).
+//
+// One warp scans 32 chains t0 .. t0 + 31 of one residue in blocks of 32
+// steps, from the largest q down: the run bits of a block (32 steps x 32
+// chains) are loaded as 32 row words (lane L: step qb + L, one funnel
+// shift of two plane words) and transposed across the warp, so that lane j
+// holds chain t0 + j's 32 bits W (bit i = step qb + i).  In a word the run
+// length from bit i is a count of trailing ones; a run that reaches bit 31
+// continues with the carry F = f at bit 0 of the block before (larger q).
+// A run start is a set bit whose predecessor (bit i - 1, or the next
+// block's bit 31 for bit 0) is clear or across a break.
+
+constexpr int C_THREADS = 128;
+
+// 32 x 32 bit transpose across a warp: lane L's word bit j in, lane j's
+// word bit L out
+__device__ __forceinline__ unsigned transpose32(unsigned x, int lane) {
+  const unsigned masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                             0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const int j = 16 >> k;
+    const unsigned m = masks[k];
+    const unsigned y = __shfl_xor_sync(0xFFFFFFFFu, x, j);
+    x = (lane & j) ? (x & ~m) | ((y >> j) & m) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+struct Scan {
+  unsigned run0;   // bit 0 of the block before (larger q)
+  int f0;          // the capped run length at that bit
+};
+
+// One block of 32 steps of one chain (bit i = step qb + i): emits the
+// starts the block decides through emit(q, f) and returns the new carry.
+// brk: bit i set when step qb + i is the last of a real chain (break).
+template <typename Emit>
+__device__ __forceinline__ Scan scan_block(unsigned W, unsigned brk, Scan c,
+                                           int qb, int cap, Emit emit) {
+  // the run continues from bit i to bit i + 1 (bit 31: into the block
+  // before)
+  const unsigned cont = ((W >> 1) | (c.run0 << 31)) & ~brk;
+  // the block before's bit 0 is a start unless bit 31 runs into it
+  if (c.run0 && !((W & ~brk) >> 31)) emit(qb + 32, c.f0);
+  // starts at bits 1 .. 31 (bit 0 is decided by the next block)
+  unsigned starts = W & ~((W << 1) & ~(brk << 1)) & ~1u;
+  while (starts) {
+    const int i = __ffs(starts) - 1;
+    starts &= starts - 1;
+    const unsigned ones = ~(cont >> i);       // non-zero: i >= 1
+    const int n = __ffs(ones) - 1;            // run length - 1, in block
+    emit(qb + i, n >= 32 - i ? min(32 - i + c.f0, cap) : min(n + 1, cap));
+  }
+  Scan next;
+  next.run0 = W & 1u;
+  if (next.run0) {
+    const int n = cont == ~0u ? 32 : __ffs(~cont) - 1;
+    next.f0 = n >= 32 ? min(32 + c.f0, cap) : min(n + 1, cap);
+  } else {
+    next.f0 = 0;
+  }
+  return next;
+}
+
+// dy != 0: the warp's chains t0 + lane over the rows
+__device__ __forceinline__ void scan_rows(const unsigned* __restrict__ pl,
+                                          int* __restrict__ out, int t0,
+                                          int U, int V, int su, int sv,
+                                          int hq, int cap) {
+  const int lane = threadIdx.x % 32, t = t0 + lane;
+  const int WW = V / 32, DM = abs(su);
+  const bool flip = su < 0;
+  const int qtop = (U - 1) / DM;
+  for (int rho = 0; rho < DM; ++rho) {
+    Scan c = {0u, 0};
+    for (int qb = qtop - 31; qb >= -32; qb -= 32) {
+      // lane L loads step qb + L: 32 consecutive columns from the warp's
+      // first chain's column at that step
+      const int q = qb + lane, up = q * DM + rho;
+      unsigned R = 0;
+      if (up >= 0 && up < U) {
+        const int y = flip ? U - 1 - up : up;
+        int col = (t0 + sv * q) % V;
+        if (col < 0) col += V;
+        const int w = col >> 5;
+        const unsigned* row = pl + (size_t)y * WW;
+        R = __funnelshift_r(__ldg(row + w), __ldg(row + (w + 1 == WW ? 0 : w + 1)),
+                            col & 31);
+      }
+      const unsigned W = transpose32(R, lane);
+      // this chain's column at step qb, and its break inside the block
+      int c0 = (t + sv * qb) % V;
+      if (c0 < 0) c0 += V;
+      unsigned brk = 0;
+      if (sv != 0) {
+        const int i1 = sv > 0 ? (V - c0 - 1) / sv : c0 / (-sv);
+        if (i1 < 32) brk = 1u << i1;
+      }
+      c = scan_block(W, brk, c, qb, cap, [&](int qs, int f) {
+        const int us = qs * DM + rho;
+        const int y = flip ? U - 1 - us : us;
+        int x = (t + sv * qs) % V;
+        if (x < 0) x += V;
+        atomicMax(out + (size_t)(y >> 3) * V + x,
+                  (f * hq) * 64 + (63 - (y & 7) * 8 - (x & 7)));
+      });
+    }
+  }
+}
+
+// dy == 0, |dx| == 1: each lane's chain is its row; a block of 32 steps is
+// one plane word (bit-reversed when dx < 0)
+__device__ __forceinline__ void scan_cols(const unsigned* __restrict__ pl,
+                                          int* __restrict__ out, int y,
+                                          int U, int su, int hq, int cap) {
+  const int WW = U / 32;
+  const bool flip = su < 0;
+  const unsigned* row = pl + (size_t)y * WW;
+  Scan c = {0u, 0};
+  for (int qb = U - 32; qb >= -32; qb -= 32) {
+    unsigned W = 0;
+    if (qb >= 0) W = flip ? __brev(__ldg(row + (U - 32 - qb) / 32))
+                          : __ldg(row + qb / 32);
+    c = scan_block(W, 0u, c, qb, cap, [&](int qs, int f) {
+      const int x = flip ? U - 1 - qs : qs;
+      atomicMax(out + (size_t)(y >> 3) * U + x,
+                (f * hq) * 64 + (63 - (y & 7) * 8 - (x & 7)));
+    });
+  }
+}
+
+// dy == 0, |dx| = DM >= 2 (no direction of lsd.DIR_STEPS): one thread per
+// row walks its DM interleaved chains, f in registers
+template <int DM>
+__device__ __forceinline__ void walk_cols(const unsigned* __restrict__ pl,
+                                          int* __restrict__ out, int y,
+                                          int U, int su, int hq, int cap) {
+  const int WW = U / 32;
+  const bool flip = su < 0;
+  const unsigned* row = pl + (size_t)y * WW;
+  int f[DM], run[DM];
+#pragma unroll
+  for (int k = 0; k < DM; ++k) f[k] = run[k] = 0;
+  for (int q = (U - 1) / DM; q >= -1; --q) {
+#pragma unroll
+    for (int rho = DM - 1; rho >= 0; --rho) {
+      const int up = q * DM + rho;
+      const int x = flip ? U - 1 - up : up;
+      const int bit = up >= 0 && up < U ? (__ldg(row + (x >> 5)) >> (x & 31)) & 1 : 0;
+      if (run[rho] && !bit) {
+        const int uh = up + DM, xh = flip ? U - 1 - uh : uh;
+        atomicMax(out + (size_t)(y >> 3) * U + xh,
+                  (f[rho] * hq) * 64 + (63 - (y & 7) * 8 - (xh & 7)));
+      }
+      f[rho] = bit ? min(f[rho] + 1, cap) : 0;
+      run[rho] = bit;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(C_THREADS)
+chain_pack_kernel(const unsigned* __restrict__ planes, int* __restrict__ out,
+                  int Hp, int Wp, Dirs dirs, int cap) {
+  const int d = blockIdx.y, n = blockIdx.z;
+  const int dx = dirs.dx[d], dy = dirs.dy[d], hq = dirs.hq[d];
+  const unsigned* pl = planes + ((size_t)n * dirs.D + d) * Hp * (Wp / 32);
+  int* o = out + ((size_t)n * dirs.D + d) * (Hp / 8) * Wp;
+  if (dy != 0) {
+    const int t0 = blockIdx.x * C_THREADS + threadIdx.x / 32 * 32;
+    if (t0 < Wp) scan_rows(pl, o, t0, Hp, Wp, dy, dx, hq, cap);
+    return;
+  }
+  const int y = blockIdx.x * C_THREADS + threadIdx.x;
+  if (y >= Hp) return;
+  switch (abs(dx)) {
+    case 1: scan_cols(pl, o, y, Wp, dx, hq, cap); break;
+    case 2: walk_cols<2>(pl, o, y, Wp, dx, hq, cap); break;
+    case 3: walk_cols<3>(pl, o, y, Wp, dx, hq, cap); break;
+    default: walk_cols<4>(pl, o, y, Wp, dx, hq, cap);
+  }
+}
+
+// ---- the one-direction kernel ---------------------------------------------
+
+constexpr int TY = 32, TX = 128;          // tile of the padded domain
+constexpr int AY = TY + 2 * HA, AX = TX + 2 * HA;
+constexpr int TTY = TY + 2 * HT, TTX = TX + 2 * HT;
+constexpr int THREADS = 256;
+
 __global__ void __launch_bounds__(THREADS)
-run_bits_kernel(const In* __restrict__ bits, unsigned short* __restrict__ run,
-                int H, int W, int Hp, int Wp, Dirs dirs, unsigned mask_v) {
+run_bits_kernel(const unsigned char* __restrict__ bits,
+                unsigned short* __restrict__ run, int H, int W, int Hp,
+                int Wp, int dx, int dy, unsigned mask_v) {
   __shared__ unsigned short A[AY][AX];
   __shared__ unsigned short T[TTY][TTX];
   const int n = blockIdx.z;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const In* im = bits + (size_t)n * H * W;
+  const unsigned char* im = bits + (size_t)n * H * W;
   const unsigned mask_h = ~mask_v;
 
   for (int i = threadIdx.x; i < AY * AX; i += THREADS) {
@@ -101,7 +433,7 @@ run_bits_kernel(const In* __restrict__ bits, unsigned short* __restrict__ run,
     const int y = y0 + ly - HA, x = x0 + lx - HA;
     unsigned v = 0;
     if ((unsigned)y < (unsigned)H && (unsigned)x < (unsigned)W)
-      v = load_bits(im[(size_t)y * W + x]);
+      v = im[(size_t)y * W + x] != 0 ? 1u : 0u;
     A[ly][lx] = (unsigned short)v;
   }
   __syncthreads();
@@ -125,60 +457,19 @@ run_bits_kernel(const In* __restrict__ bits, unsigned short* __restrict__ run,
   for (int i = threadIdx.x; i < TY * TX; i += THREADS) {
     const int ly = i / TX, lx = i % TX;
     const int y = y0 + ly, x = x0 + lx;
-    if (y >= Hp) break;                  // a ragged last tile row (B4 only)
+    if (y >= Hp) break;                  // a ragged last tile row
     const int ty = ly + HT, tx = lx + HT;
     const unsigned t0 = T[ty][tx];
-    unsigned word = 0;
-    for (int d = 0; d < dirs.D; ++d) {
-      const int dx = dirs.dx[d], dy = dirs.dy[d];
-      const unsigned tm1 = T[ty - dy][tx - dx];
-      const unsigned tm2 = T[ty - 2 * dy][tx - 2 * dx];
-      const unsigned tp1 = T[ty + dy][tx + dx];
-      const unsigned tp2 = T[ty + 2 * dy][tx + 2 * dx];
-      const unsigned dil0 = t0 | tm1 | tp1;
-      const unsigned dilm =
-          in_dom(y - dy, x - dx, Hp, Wp) ? (tm2 | tm1 | t0) : 0u;
-      const unsigned dilp =
-          in_dom(y + dy, x + dx, Hp, Wp) ? (t0 | tp1 | tp2) : 0u;
-      word |= ((dil0 & dilm & dilp) | t0) & (1u << d);
-    }
-    out[(size_t)y * Wp + x] = (unsigned short)word;
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-pack_kernel(const unsigned short* __restrict__ run, int* __restrict__ out,
-            int Hp, int Wp, Dirs dirs, int cap) {
-  const int x = blockIdx.x * THREADS + threadIdx.x;
-  if (x >= Wp) return;
-  const int ty = blockIdx.y, n = blockIdx.z;
-  const int Ht = Hp / 8;
-  const unsigned short* R = run + (size_t)n * Hp * Wp;
-
-  unsigned rows[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) rows[r] = R[(size_t)(ty * 8 + r) * Wp + x];
-
-  for (int d = 0; d < dirs.D; ++d) {
-    const int dx = dirs.dx[d], dy = dirs.dy[d], hq = dirs.hq[d];
-    int best = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      if (!((rows[r] >> d) & 1u)) continue;
-      const int y = ty * 8 + r;
-      const int yb = y - dy, xb = x - dx;
-      if (in_dom(yb, xb, Hp, Wp) && ((R[(size_t)yb * Wp + xb] >> d) & 1u))
-        continue;                               // not a run start
-      int f = 1, yy = y + dy, xx = x + dx;
-      while (f < cap && in_dom(yy, xx, Hp, Wp) &&
-             ((R[(size_t)yy * Wp + xx] >> d) & 1u)) {
-        ++f;
-        yy += dy;
-        xx += dx;
-      }
-      best = max(best, (f * hq) * 64 + (63 - r * 8 - (x & 7)));
-    }
-    out[(((size_t)n * dirs.D + d) * Ht + ty) * Wp + x] = best;
+    const unsigned tm1 = T[ty - dy][tx - dx];
+    const unsigned tm2 = T[ty - 2 * dy][tx - 2 * dx];
+    const unsigned tp1 = T[ty + dy][tx + dx];
+    const unsigned tp2 = T[ty + 2 * dy][tx + 2 * dx];
+    const unsigned dil0 = t0 | tm1 | tp1;
+    const unsigned dilm =
+        in_dom(y - dy, x - dx, Hp, Wp) ? (tm2 | tm1 | t0) : 0u;
+    const unsigned dilp =
+        in_dom(y + dy, x + dx, Hp, Wp) ? (t0 | tp1 | tp2) : 0u;
+    out[(size_t)y * Wp + x] = (unsigned short)(((dil0 & dilm & dilp) | t0) & 1u);
   }
 }
 
@@ -211,13 +502,14 @@ pack_pixel_kernel(const unsigned short* __restrict__ run,
 
 }  // namespace
 
-// bits [N, H, W] i32, run [N, Hp, Wp] 16-bit scratch, out [N, D, Hp/8, Wp]
-// i32, all on the device; steps: 3 * D host ints (dx[D], dy[D], hq[D]).
+// bits [N, H, W] i32, run [N, D, Hp, Wp/32] 32-bit run-plane scratch,
+// out [N, D, Hp/8, Wp] i32, all on the device; steps: 3 * D host ints
+// (dx[D], dy[D], hq[D]).
 extern "C" int stvo_lsd_run_pack_multi(const void* bits, void* run, void* out,
                                        int N, int H, int W, int Hp, int Wp,
                                        int D, const int* steps, int cap,
                                        void* stream) {
-  if (D < 1 || D > MAX_D || Hp % TY || Wp % TX || Hp % 8 || H > Hp || W > Wp)
+  if (D < 1 || D > MAX_D || Hp % PY || Wp % PX || H > Hp || W > Wp)
     return (int)cudaErrorInvalidValue;
   Dirs dirs;
   dirs.D = D;
@@ -229,16 +521,23 @@ extern "C" int stvo_lsd_run_pack_multi(const void* bits, void* run, void* out,
     dirs.hq[d] = on ? steps[2 * D + d] : 0;
     if (!on) continue;
     const int ax = abs(dirs.dx[d]), ay = abs(dirs.dy[d]);
-    if (ax > MAX_STEP || ay > MAX_STEP) return (int)cudaErrorInvalidValue;
+    if (ax > MAX_STEP || ay > MAX_STEP || ax + ay == 0)
+      return (int)cudaErrorInvalidValue;
     if (ax >= ay) mask_v |= 1u << d;     // thicken across rows
   }
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    run_bits_kernel<int><<<dim3(Wp / TX, Hp / TY, N), THREADS, 0, s>>>(
-        (const int*)bits, (unsigned short*)run, H, W, Hp, Wp, dirs, mask_v);
-    pack_kernel<<<dim3((Wp + THREADS - 1) / THREADS, Hp / 8, N), THREADS, 0,
-                  s>>>((const unsigned short*)run, (int*)out, Hp, Wp, dirs,
-                       cap);
+    cudaError_t e = cudaFuncSetAttribute(
+        run_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        planes_smem(MAX_D));
+    if (e != cudaSuccess) return (int)e;
+    run_planes_kernel<<<dim3(Wp / PX, Hp / PY, N), P_THREADS, planes_smem(D),
+                        s>>>((const int*)bits, (unsigned*)run, (int*)out, H,
+                             W, Hp, Wp, dirs, mask_v);
+    const int chains = Wp > Hp ? Wp : Hp;
+    chain_pack_kernel<<<dim3((chains + C_THREADS - 1) / C_THREADS, D, N),
+                        C_THREADS, 0, s>>>((const unsigned*)run, (int*)out,
+                                           Hp, Wp, dirs, cap);
   }
   return (int)cudaGetLastError();
 }
@@ -252,19 +551,12 @@ extern "C" int stvo_lsd_run_pack(const void* aligned, void* run, void* out,
   if (Hp % 8 || Wp % TX || H > Hp || W > Wp || Hp > 65535 ||
       abs(dx) > MAX_STEP || abs(dy) > MAX_STEP || (dx == 0 && dy == 0))
     return (int)cudaErrorInvalidValue;
-  Dirs dirs;
-  for (int d = 0; d < MAX_D; ++d) dirs.dx[d] = dirs.dy[d] = dirs.hq[d] = 0;
-  dirs.D = 1;
-  dirs.dx[0] = dx;
-  dirs.dy[0] = dy;
-  dirs.hq[0] = 1;
   const unsigned mask_v = abs(dx) >= abs(dy) ? 1u : 0u;
   if (N > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    run_bits_kernel<unsigned char>
-        <<<dim3(Wp / TX, (Hp + TY - 1) / TY, N), THREADS, 0, s>>>(
-            (const unsigned char*)aligned, (unsigned short*)run, H, W, Hp, Wp,
-            dirs, mask_v);
+    run_bits_kernel<<<dim3(Wp / TX, (Hp + TY - 1) / TY, N), THREADS, 0, s>>>(
+        (const unsigned char*)aligned, (unsigned short*)run, H, W, Hp, Wp, dx,
+        dy, mask_v);
     pack_pixel_kernel<<<dim3((Wp + THREADS - 1) / THREADS, Hp, N), THREADS, 0,
                         s>>>((const unsigned short*)run, (int*)out, Hp, Wp,
                              dx, dy, cap);

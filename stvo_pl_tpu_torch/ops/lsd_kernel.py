@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from stvo_pl_tpu_torch import build
 
-MAX_DIRS = 16      # bits of the 16-bit run words inside the kernel
+MAX_DIRS = 16      # directions the kernel takes (its direction tables)
 MAX_STEP = 4       # |dx|, |dy| the kernel's shared-memory halo covers
 
 
@@ -142,8 +142,10 @@ def run_pack_multi(bits: torch.Tensor, steps,
     out = torch.empty((N, D, Ht, Wp), dtype=torch.int32, device=bits.device)
     if N == 0:
         return out
-    # the run words of all directions, between the kernel's two passes
-    scratch = torch.empty((N, Hp, Wp), dtype=torch.int16, device=bits.device)
+    # the run planes of all directions (one bit per pixel and direction),
+    # between the kernel's two passes
+    scratch = torch.empty((N, D, Hp, Wp // 32), dtype=torch.int32,
+                          device=bits.device)
     table = (ctypes.c_int * (3 * D))(
         *[s[0] for s in steps], *[s[1] for s in steps],
         *[_hop_q(*s) for s in steps])

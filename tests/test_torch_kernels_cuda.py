@@ -7,6 +7,7 @@ machine with a card with
 conftest imports jax);
 `python3 chip_smoke.py` makes the same checks at the main path's shapes."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,9 @@ def cuda():
 
 
 @pytest.mark.parametrize("shape", [(2, 97, 150), (3, 80, 256),
-                                   (16, 214, 709)])
+                                   # the main path's four pyramid levels
+                                   (16, 370, 1226), (16, 308, 1022),
+                                   (16, 257, 851), (16, 214, 709)])
 def test_fast_pack_kernel_equals_plain(cuda, shape):
     from stvo_pl_tpu_torch.ops import fast_kernel
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -35,6 +38,23 @@ def test_fast_pack_kernel_equals_plain(cuda, shape):
     assert fast_kernel.fast_pack.launches == before + 1
     assert torch.equal(k, p)
     assert int((k > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["constant", "dots"])
+def test_fast_pack_kernel_design_cases(cuda, kind):
+    """No response anywhere, and bright dots 4 px apart on a dark field
+    (every dot inside the border is a survivor)."""
+    from stvo_pl_tpu_torch.ops import fast_kernel
+    img = torch.full((4, 370, 1226), 10.0 if kind == "dots" else 77.0,
+                     device=cuda)
+    if kind == "dots":
+        img[:, 2::4, 3::4] = 200.0
+    k = fast_kernel.fast_pack(img, 19)
+    p = fast_kernel.fast_pack_plain(img, 19)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+    n = int((k > 0).sum())
+    assert n == 0 if kind == "constant" else n >= 4 * 82 * 296
 
 
 @pytest.mark.parametrize("patch,dtype", [(33, torch.float32),
@@ -88,6 +108,53 @@ def test_run_pack_multi_kernel_equals_plain(cuda, shape, n_dirs, density,
     for md in (0, 3):
         assert torch.equal(lsd_kernel.run_pack_multi(bits, steps, md),
                            lsd_kernel.run_pack_multi_plain(bits, steps, md))
+
+
+def _long_run_bits(shape, steps, seed):
+    """2% noise per direction plus, per image and direction, straight
+    chains 40-300 hops long (the first 300) inside the image; the last
+    row and column set at every third pixel."""
+    rng = np.random.default_rng(seed)
+    n, H, W = shape
+    bits = np.zeros(shape, np.int32)
+    for d, (dx, dy) in enumerate(steps):
+        bits |= (rng.random(shape) < 0.02).astype(np.int32) << d
+        for i in range(n):
+            for c in range(8):
+                hops = 300 if c == 0 else int(rng.integers(40, 301))
+                sy, sx = (hops - 1) * abs(dy), (hops - 1) * abs(dx)
+                y0 = int(rng.integers(0, H - sy)) + (sy if dy < 0 else 0)
+                x0 = int(rng.integers(0, W - sx)) + (sx if dx < 0 else 0)
+                k = np.arange(hops)
+                bits[i, y0 + k * dy, x0 + k * dx] |= 1 << d
+    bits[:, -1, ::3] |= (1 << len(steps)) - 1
+    bits[:, ::3, -1] |= (1 << len(steps)) - 1
+    return bits
+
+
+# steps outside DIR_STEPS that the kernel also takes: dy < 0, and dy == 0
+# with |dx| >= 2 (the scalar row walk)
+OTHER_STEPS = [(2, 0), (-3, 0), (4, 0), (-1, 0), (0, -2), (1, -3), (-4, -1),
+               (3, -2)]
+
+
+@pytest.mark.parametrize("max_doublings,dirs", [(0, "all"), (3, "all"),
+                                                (8, "all"), (8, "other"),
+                                                (3, "other")])
+def test_run_pack_multi_kernel_long_runs(cuda, max_doublings, dirs):
+    """Runs longer than the cap in all 16 directions, across many tiles."""
+    from stvo_pl_tpu_torch.ops import lsd, lsd_kernel
+    steps = lsd.direction_steps(16) if dirs == "all" else OTHER_STEPS
+    bits = torch.from_numpy(_long_run_bits((2, 1280, 1280), steps,
+                                           max_doublings)).to(cuda)
+    k = lsd_kernel.run_pack_multi(bits, steps, max_doublings)
+    p = lsd_kernel.run_pack_multi_plain(bits, steps, max_doublings)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p), int((k != p).sum())
+    hq = torch.tensor([lsd_kernel._hop_q(*s) for s in steps],
+                      device=cuda)[None, :, None, None]
+    at_cap = ((k >> 6) == hq * (1 << max_doublings)).flatten(2).any(-1)
+    assert bool(at_cap.all())
 
 
 @pytest.mark.parametrize("shape,step,density,border,dtype", [
