@@ -6,9 +6,13 @@ Builds the CUDA kernels from stvo_pl_tpu_torch/csrc, holds each kernel
 (FAST pack, patch gather, the all-direction and the one-direction LSD run
 pack, XOR + popcount Hamming) against its plain PyTorch version at the
 shapes of the paths that run it (FAST also on a constant image, a dot
-field and a 4x4 tiling; the all-direction run pack also on runs longer
-than its cap in all 16 directions and with caps 1 and 8), then drives the
-default point + line VO
+field and a 4x4 tiling; the patch gather also with K = 1, odd K, partial
+last 16-byte groups, corners at the image's last row and column or
+outside it, and u32 rows; both run packs also on runs longer than their
+cap, in all 16 directions for the all-direction one and in the 12 dense
+directions for the one-direction one, with caps 1, 8 and 256), times
+them (B2 per pyramid level, B4 per direction and per pass), then drives
+the default point + line VO
 step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
 synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
 checks the trajectories.  Over the first 6 frames of the same sequences it
@@ -107,6 +111,20 @@ def time_ms(fn, reps: int, trials: int = 3) -> float:
     return best
 
 
+def kernel_split_us(fn, reps: int = 10) -> dict:
+    """Device microseconds per call of each CUDA kernel that fn launches,
+    from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / reps
+            for e in prof.key_averages() if e.device_type.name == "CUDA"}
+
+
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
@@ -151,6 +169,16 @@ def long_run_bits(gen: torch.Generator, n: int, size: int,
     bits[:, -1, ::3] |= (1 << len(steps)) - 1
     bits[:, ::3, -1] |= (1 << len(steps)) - 1
     return bits
+
+
+def long_run_mask(gen: torch.Generator, n: int, size: int,
+                  step) -> torch.Tensor:
+    """[n, size, size] 0/1 masks for one direction: 2% noise and per image
+    8 straight chains of the step, 40 to 300 hops long (the first always
+    300), inside the image; the last row and column set at every third
+    pixel."""
+    one = long_run_bits(gen, n, size, [step])
+    return one != 0
 
 
 def covered_pixels(y0: torch.Tensor, x0: torch.Tensor, H: int, W: int,
@@ -359,9 +387,44 @@ def main() -> None:
     rp = patches.extract_patches_plain(bits, yr, xr, (1, 64))
     torch.cuda.synchronize()
     require(torch.equal(rk, rp), "B2 row mode: kernel != plain")
+    # the kernel's edges: K = 1 and K a multiple of no block size, outputs
+    # whose word count is not a multiple of 4 (a partial last 16-byte
+    # group), corners at x0 = W - PX, y0 = H - PY and outside the image,
+    # u32 data in the row mode
+    b2_cases = []
+    for name, K, patch, dtype, inside in (
+            ("k1", 1, P, torch.float32, True),
+            ("k37_edge", 37, P, torch.float32, True),
+            ("k29_outside", 29, P, torch.float32, False),
+            ("k13_5x7", 13, (5, 7), torch.float32, True),
+            ("row_u32_edge", 45, (1, 64), torch.uint32, True),
+            ("row_u32_outside", 1031, (1, 64), torch.uint32, False)):
+        PY, PX = (patch, patch) if isinstance(patch, int) else patch
+        img = levels[1][:3].contiguous()
+        if dtype == torch.uint32:
+            img = img.view(torch.uint32)
+        N, H, W = img.shape
+        lo_y, hi_y = (0, H - PY + 1) if inside else (-PY - 2, H + 2)
+        lo_x, hi_x = (0, W - PX + 1) if inside else (-PX - 2, W + 2)
+        yc = torch.randint(lo_y, hi_y, (N, K), device=dev, generator=gnoise,
+                           dtype=torch.int32)
+        xc = torch.randint(lo_x, hi_x, (N, K), device=dev, generator=gnoise,
+                           dtype=torch.int32)
+        if inside:
+            yc[:, 0], xc[:, 0] = H - PY, W - PX
+        k = patches.extract_patches(img, yc, xc, patch)
+        p = patches.extract_patches_plain(img, yc, xc, patch)
+        torch.cuda.synchronize()
+        require(torch.equal(k.view(torch.int32), p.view(torch.int32)),
+                f"B2 {name}: kernel != plain")
+        b2_cases.append(dict(name=name, shape=[N, H, W], K=K,
+                             patch=[PY, PX], words=k.numel()))
+    require(any(c["words"] % 4 for c in b2_cases),
+            "B2: no case with a partial last group")
     emit("B2_extract_patches", equal=True, row_mode_equal=True,
-         levels=patch_rows, step_ms=tot["ms"], step_plain_ms=tot["plain_ms"],
-         step_library_ms=tot["lib_ms"], step_bound_us=tot["bound_ms"] * 1e3)
+         cases=b2_cases, levels=patch_rows, step_ms=tot["ms"],
+         step_plain_ms=tot["plain_ms"], step_library_ms=tot["lib_ms"],
+         step_bound_us=tot["bound_ms"] * 1e3)
     b2 = dict(name="extract_patches", route="cuda",
               source="stvo_pl_tpu_torch/csrc/patches.cu",
               replaces="stvo_pl_tpu/ops/patches.py:29",
@@ -494,6 +557,23 @@ def main() -> None:
         if name.startswith("noise"):
             require(bool((x[:, -1, :] != 0).any() & (x[:, :, -1] != 0).any()),
                     f"B4 {name}: no set bits at the border")
+    # runs longer than the cap in each of the 12 dense directions (and two
+    # steps with dy < 0 and with dy = 0, |dx| = 4), caps 1, 8 and 256
+    b4_long = {0: 0, 3: 0, 8: 0}        # words at the cap, per max_doublings
+    for dx, dy in dsteps + [(4, 0), (-3, -2)]:
+        x = long_run_mask(gnoise, 2, LONG_RUN_SIZE, (dx, dy))
+        for md in b4_long:
+            k = lsd_kernel.run_pack(x, dx, dy, md)
+            p = lsd_kernel.run_pack_plain(x, dx, dy, md)
+            torch.cuda.synchronize()
+            b4_err = max(b4_err, float((k.long() - p.long()).abs().max()))
+            require(torch.equal(k, p), f"B4 long_runs {(dx, dy)} "
+                    f"max_doublings={md}: kernel != plain at "
+                    f"{int((k != p).sum())} words")
+            at_cap = int(((k >> 6) == 1 << md).sum())
+            require(at_cap > 0, f"B4 long_runs {(dx, dy)} "
+                    f"max_doublings={md}: no run at the cap")
+            b4_long[md] += at_cap
     # one step of the per-direction detector launches it once per direction
     b4_dirs = []
     b4_ms = b4_plain = 0.0
@@ -510,6 +590,8 @@ def main() -> None:
                            N * Hp4 * Wp4 * RUN_PACK_ONE_OPS_PER_PIXEL)
     b4_bnd = bnd1 * len(dsteps)
     emit("B4_run_pack", equal=True, cases=[c[0] for c in b4_cases],
+         long_run_words_at_cap=b4_long,
+         long_run_shape=[2, LONG_RUN_SIZE, LONG_RUN_SIZE],
          shape=[N, H, W], out_shape=[N, Hp4, Wp4], dirs=b4_dirs,
          step_ms=b4_ms, step_plain_ms=b4_plain, noise_5_ms=b4_noise_ms,
          launch_bound_us=bnd1 * 1e3, step_bound_us=b4_bnd * 1e3,
@@ -519,7 +601,7 @@ def main() -> None:
               replaces="stvo_pl_tpu/ops/lsd_kernel.py:90",
               max_abs_err=b4_err, ms=b4_ms, plain_ms=b4_plain,
               bound_ms=b4_bnd, bound_by=b4_by, library_ms=None)
-    del masks, b4_cases, ang, mag, strong
+    del b4_cases, ang, mag, strong       # the masks stay for the pass split
 
     # ---- 5c. B5: XOR + popcount Hamming --------------------------------
     def words(*shape):
@@ -797,6 +879,18 @@ def main() -> None:
     require(dmax < 0.01, f"GPU and CPU poses differ by {dmax} m")
     require(dmax_dense < 0.01, f"dense per-direction: GPU and CPU poses "
             f"differ by {dmax_dense} m")
+
+    # ---- 8. B4 split into its passes, by torch.profiler ----------------
+    # last: after a profiler session in this process the VO phases' steps
+    # read slower on the host clock (PERF.md §5)
+    b4_split, b4_dir_split = {}, []
+    for m, (dx, dy) in zip(masks, dsteps):
+        split = kernel_split_us(lambda: lsd_kernel.run_pack(m, dx, dy))
+        for key, us in split.items():
+            b4_split[key] = b4_split.get(key, 0.0) + us
+        b4_dir_split.append(dict(step=[dx, dy], split_us=split))
+    emit("B4_pass_split", step_split_us=b4_split, dirs=b4_dir_split)
+    del masks
 
     # each kernel's launches come from the phase whose path runs it
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -3,9 +3,10 @@
 Every source in `csrc/` is compiled by its own `nvcc` process (all started
 together) and the objects are linked into one shared library with a plain
 C interface, loaded with `ctypes`.  The build happens at first use, into
-`build/kernels-<hash>/` beside the package; the hash covers the sources and
-the flags, so an edited source is rebuilt.  A missing `nvcc` or a failed
-compile raises: there is no fallback to the plain PyTorch versions.
+`build/kernels-<hash>/` beside the package; the hash covers the sources,
+their shared headers and the flags, so an edited file is rebuilt.  A
+missing `nvcc` or a failed compile raises: there is no fallback to the
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -62,6 +63,8 @@ def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_ROOT / f"kernels-{h.hexdigest()[:16]}"
 
 

@@ -54,16 +54,18 @@
 // without hop weight and without the 8-row maximum.  Replaces the TPU kernel
 // stvo_pl_tpu/ops/lsd_kernel.py::_run_pack_pallas (body _make_kernel), which
 // the per-direction candidate generator of the dense detector launches once
-// per direction.  Pass 1, run_bits_kernel, writes each pixel's run bit as a
-// 16-bit word from a shared-memory tile (the padded height need not be a
-// multiple of the tile, so tile rows beyond Hp are outside the domain and
-// are not written); pass 2, pack_pixel_kernel, walks each run start, one
-// thread per pixel.  Bytes bound it: 1 in, 4 out per pixel against about
-// 17 integer operations.
+// per direction.  Pass 1 (run_plane_kernel) writes one run bit per pixel
+// ([N, Hp, Wp / 32] words, L2-resident), pass 2 (start_pack_kernel) writes
+// every output word once from staged 4 KB spans and measures run lengths
+// only at starts (see the section's own comment).  Bytes bound it: 1 in, 4 out per pixel
+// against about 17 integer operations.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstdlib>
+
+#include "fast_div.cuh"
 
 namespace {
 
@@ -78,10 +80,6 @@ struct Dirs {
   int dy[MAX_D];
   int hq[MAX_D];
 };
-
-__device__ __forceinline__ bool in_dom(int y, int x, int Hp, int Wp) {
-  return (unsigned)y < (unsigned)Hp && (unsigned)x < (unsigned)Wp;
-}
 
 // ---- the all-direction kernel, pass 1: run planes ------------------------
 
@@ -411,93 +409,293 @@ chain_pack_kernel(const unsigned* __restrict__ planes, int* __restrict__ out,
 }
 
 // ---- the one-direction kernel ---------------------------------------------
+//
+// Pass 1, run_plane_kernel: one block per (image, RT rows of the padded
+// domain), over the whole padded width, warps on rows and lanes on words.
+// A row's bitmask word (32 mask bytes, which need not start on 16 bytes)
+// is cut out of the three aligned 16-byte vectors that hold it, each
+// gathered into 16 bits by one multiply per 4 bytes; columns >= W are
+// cleared.  Thick, dilated and gap-closed bits are then word
+// operations as in B3's pass 1, and the run plane [N, Hp, Wp / 32] (one
+// bit per pixel: 0.96 MB, L2-resident for pass 2) is written once.
+//
+// Pass 2, start_pack_kernel: every output word is written exactly once.
+// A lane owns one plane word, 32 pixels of a row; a warp owns 32
+// consecutive plane words (flat over image, row and word), whose outputs
+// are 1024 consecutive words: the lanes stage them in shared memory and
+// the warp stores them as 16-byte vectors, 512 contiguous bytes per store
+// instruction.  The starts of a word are run bits whose predecessor p -
+// step is clear or outside the domain (one shifted window of the row dy
+// back).  Lengths:
+// - dy = 0 and |dx| = 1: trailing-ones (leading-ones for dx < 0) counts
+//   along the row's words;
+// - otherwise: the windows of the HOPS rows ahead along the step, shifted
+//   by h dx, are loaded at once and ANDed in turn, so each start's length
+//   up to HOPS + 1 is a count of set bits; the runs of a word still alive
+//   after them are finished by the whole warp, 32 hops per round (lane j
+//   loads the word's window at hop h + j, one ballot per run finds its
+//   end).
+// No atomics and no memset: the zeros go out in the same stores.
 
-constexpr int TY = 32, TX = 128;          // tile of the padded domain
-constexpr int AY = TY + 2 * HA, AX = TX + 2 * HA;
-constexpr int TTY = TY + 2 * HT, TTX = TX + 2 * HT;
-constexpr int THREADS = 256;
+constexpr int RT = 16;                    // rows of a pass-1 tile
+constexpr int R_THREADS = 256;
+constexpr int R_WARPS = R_THREADS / 32;
+constexpr int S_THREADS = 256;            // pass 2: threads of a block
+constexpr int HOPS = 8;                   // hops of every start loaded at once
 
-__global__ void __launch_bounds__(THREADS)
-run_bits_kernel(const unsigned char* __restrict__ bits,
-                unsigned short* __restrict__ run, int H, int W, int Hp,
-                int Wp, int dx, int dy, unsigned mask_v) {
-  __shared__ unsigned short A[AY][AX];
-  __shared__ unsigned short T[TTY][TTX];
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const unsigned char* im = bits + (size_t)n * H * W;
-  const unsigned mask_h = ~mask_v;
+// bit k = byte k of v, for bytes that are 0 or 1: byte k (bit 8 k) times
+// 2^(24 - 7 k) lands on bit 24 + k, and the 16 partial products of the
+// multiply set distinct bits, so nothing carries
+__device__ __forceinline__ unsigned byte_bits4(unsigned v) {
+  return (v * 0x01020408u) >> 24;
+}
 
-  for (int i = threadIdx.x; i < AY * AX; i += THREADS) {
-    const int ly = i / AX, lx = i % AX;
-    const int y = y0 + ly - HA, x = x0 + lx - HA;
-    unsigned v = 0;
-    if ((unsigned)y < (unsigned)H && (unsigned)x < (unsigned)W)
-      v = im[(size_t)y * W + x] != 0 ? 1u : 0u;
-    A[ly][lx] = (unsigned short)v;
-  }
-  __syncthreads();
+__device__ __forceinline__ unsigned byte_bits16(uint4 q) {
+  return byte_bits4(q.x) | byte_bits4(q.y) << 4 |
+         byte_bits4(q.z) << 8 | byte_bits4(q.w) << 12;
+}
 
-  // thick words; zero outside the padded domain (the shifts' zero fill)
-  for (int i = threadIdx.x; i < TTY * TTX; i += THREADS) {
-    const int ly = i / TTX, lx = i % TTX;
-    const int y = y0 + ly - HT, x = x0 + lx - HT;
-    unsigned v = 0;
-    if (in_dom(y, x, Hp, Wp)) {
-      const int ay = ly + 1, ax = lx + 1;
-      const unsigned vert = A[ay + 1][ax] | A[ay - 1][ax];
-      const unsigned horz = A[ay][ax + 1] | A[ay][ax - 1];
-      v = A[ay][ax] | (vert & mask_v) | (horz & mask_h);
+// bitmask rows RT + 4|dy| + 2 and thick rows RT + 4|dy|, each Wp / 32 + 2
+// words wide
+__host__ __device__ constexpr int plane_smem_words(int ady, int WW) {
+  return (2 * RT + 8 * ady + 2) * (WW + 2);
+}
+
+// bit j = byte b + j of the mask (0 or 1; bytes from `total` on read as
+// 0), from the aligned 16-byte vectors at a, a + 16 and a + 32, a = b
+// rounded down to 16
+__device__ __forceinline__ unsigned mask_word(
+    const unsigned char* __restrict__ mask, size_t total, size_t b) {
+  const size_t a = b & ~(size_t)15;
+  unsigned long long v = 0ull;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const size_t o = a + 16 * k;
+    unsigned h = 0u;
+    if (o + 16 <= total) {
+      h = byte_bits16(__ldg(reinterpret_cast<const uint4*>(mask + o)));
+    } else {                                 // the mask's last bytes
+      for (size_t q = o; q < total; ++q) h |= (unsigned)mask[q] << (q - o);
     }
-    T[ly][lx] = (unsigned short)v;
+    v |= (unsigned long long)h << (16 * k);
+  }
+  return (unsigned)(v >> (b & 15));
+}
+
+__global__ void __launch_bounds__(R_THREADS)
+run_plane_kernel(const unsigned char* __restrict__ mask,
+                 unsigned* __restrict__ plane, int H, int W, int Hp, int WW,
+                 int dx, int dy, int mask_v) {
+  extern __shared__ unsigned smem[];
+  const int ady = abs(dy);
+  const int AR = RT + 4 * ady + 2, TR = RT + 4 * ady, SW = WW + 2;
+  unsigned* As = smem;                       // [AR][SW], word 1 + w
+  unsigned* Ts = As + AR * SW;               // [TR][SW]
+  const int n = blockIdx.y, y0 = blockIdx.x * RT;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ya = y0 - 2 * ady - 1;           // image row of As row 0
+  const int nw = (W + 31) >> 5;              // words that hold image columns
+
+  // 1. bitmask rows ya .. ya + AR - 1, columns >= W cleared
+  const size_t total = (size_t)gridDim.y * H * W;
+  for (int ar = warp; ar < AR; ar += R_WARPS) {
+    const int y = ya + ar;
+    const bool row_in = (unsigned)y < (unsigned)H;
+    const size_t rs = ((size_t)n * H + (row_in ? y : 0)) * W;
+    for (int wi = lane; wi < SW; wi += 32) {
+      const int w = wi - 1;
+      unsigned a = 0u;
+      if (row_in && w >= 0 && w < nw) {
+        a = mask_word(mask, total, rs + 32 * w);
+        const int cols = W - 32 * w;
+        if (cols < 32) a &= (1u << cols) - 1u;
+      }
+      As[ar * SW + wi] = a;
+    }
   }
   __syncthreads();
 
-  unsigned short* out = run + (size_t)n * Hp * Wp;
-  for (int i = threadIdx.x; i < TY * TX; i += THREADS) {
-    const int ly = i / TX, lx = i % TX;
-    const int y = y0 + ly, x = x0 + lx;
-    if (y >= Hp) break;                  // a ragged last tile row
-    const int ty = ly + HT, tx = lx + HT;
-    const unsigned t0 = T[ty][tx];
-    const unsigned tm1 = T[ty - dy][tx - dx];
-    const unsigned tm2 = T[ty - 2 * dy][tx - 2 * dx];
-    const unsigned tp1 = T[ty + dy][tx + dx];
-    const unsigned tp2 = T[ty + 2 * dy][tx + 2 * dx];
-    const unsigned dil0 = t0 | tm1 | tp1;
-    const unsigned dilm =
-        in_dom(y - dy, x - dx, Hp, Wp) ? (tm2 | tm1 | t0) : 0u;
-    const unsigned dilp =
-        in_dom(y + dy, x + dx, Hp, Wp) ? (t0 | tp1 | tp2) : 0u;
-    out[(size_t)y * Wp + x] = (unsigned short)(((dil0 & dilm & dilp) | t0) & 1u);
+  // 2. thick rows, zero outside the padded domain
+  for (int tr = warp; tr < TR; tr += R_WARPS) {
+    const int y = y0 - 2 * ady + tr;
+    for (int wi = lane; wi < SW; wi += 32) {
+      unsigned v = 0u;
+      if ((unsigned)y < (unsigned)Hp && wi > 0 && wi < SW - 1) {
+        const unsigned* A = As + (tr + 1) * SW + wi;
+        const unsigned a = A[0];
+        v = mask_v ? a | A[-SW] | A[SW]
+                   : a | (a << 1) | (A[-1] >> 31) | (a >> 1) | (A[1] << 31);
+      }
+      Ts[tr * SW + wi] = v;
+    }
+  }
+  __syncthreads();
+
+  // 3. run words of the tile
+  const int Wp = 32 * WW;
+  for (int r = warp; r < RT; r += R_WARPS) {
+    const int y = y0 + r;
+    if (y >= Hp) break;                      // a ragged last tile
+    const unsigned* T = Ts + (r + 2 * ady) * SW;
+    const unsigned dom_rm = (unsigned)(y - dy) < (unsigned)Hp ? ~0u : 0u;
+    const unsigned dom_rp = (unsigned)(y + dy) < (unsigned)Hp ? ~0u : 0u;
+    for (int w = lane; w < WW; w += 32) {
+      const int x_w = 32 * w, wi = w + 1;
+      const unsigned t0 = T[wi];
+      const unsigned tm1 = shifted(T - dy * SW, wi, -dx);
+      const unsigned tm2 = shifted(T - 2 * dy * SW, wi, -2 * dx);
+      const unsigned tp1 = shifted(T + dy * SW, wi, dx);
+      const unsigned tp2 = shifted(T + 2 * dy * SW, wi, 2 * dx);
+      const unsigned dil0 = t0 | tm1 | tp1;
+      const unsigned dilm = (tm2 | tm1 | t0) & dom_rm & col_mask(x_w, -dx, Wp);
+      const unsigned dilp = (t0 | tp1 | tp2) & dom_rp & col_mask(x_w, dx, Wp);
+      plane[((size_t)n * Hp + y) * WW + w] = (dil0 & dilm & dilp) | t0;
+    }
   }
 }
 
-// One direction, one thread per pixel of the padded domain: the word of
-// the pixel's own run start, 0 elsewhere.
-__global__ void __launch_bounds__(THREADS)
-pack_pixel_kernel(const unsigned short* __restrict__ run,
-                  int* __restrict__ out, int Hp, int Wp, int dx, int dy,
-                  int cap) {
-  const int x = blockIdx.x * THREADS + threadIdx.x;
-  if (x >= Wp) return;
-  const int y = blockIdx.y, n = blockIdx.z;
-  const unsigned short* R = run + (size_t)n * Hp * Wp;
-  int word = 0;
-  if (R[(size_t)y * Wp + x] & 1u) {
-    const int yb = y - dy, xb = x - dx;
-    if (!(in_dom(yb, xb, Hp, Wp) && (R[(size_t)yb * Wp + xb] & 1u))) {
-      int f = 1, yy = y + dy, xx = x + dx;
-      while (f < cap && in_dom(yy, xx, Hp, Wp) &&
-             (R[(size_t)yy * Wp + xx] & 1u)) {
-        ++f;
-        yy += dy;
-        xx += dx;
+// bit j = the run bit of row y at column x + j, 0 outside the domain
+__device__ __forceinline__ unsigned window32(const unsigned* P, int y, int x,
+                                             int Hp, int WW) {
+  if ((unsigned)y >= (unsigned)Hp) return 0u;
+  const unsigned* row = P + (size_t)y * WW;
+  const int w = x >> 5, b = x & 31;          // floor, also for x < 0
+  const unsigned lo = (unsigned)w < (unsigned)WW ? __ldg(row + w) : 0u;
+  const unsigned hi =
+      b && (unsigned)(w + 1) < (unsigned)WW ? __ldg(row + w + 1) : 0u;
+  return __funnelshift_r(lo, hi, b);
+}
+
+// run pixels from column x of one plane row along dx = +-1, at most cap:
+// counts of trailing (dx > 0) or leading (dx < 0) ones, word by word
+__device__ __forceinline__ int row_ones(const unsigned* row, int WW, int x,
+                                        int dx, int cap) {
+  int n = 0;
+  while (n < cap) {
+    const int w = x >> 5, b = x & 31;
+    const unsigned word = (unsigned)w < (unsigned)WW ? __ldg(row + w) : 0u;
+    int t, avail;
+    if (dx > 0) {
+      const unsigned v = ~(word >> b);
+      t = v ? __ffs(v) - 1 : 32;
+      avail = 32 - b;
+    } else {
+      t = __clz(~(word << (31 - b)));
+      avail = b + 1;
+    }
+    n += t;
+    if (t < avail) break;
+    x += dx * t;
+  }
+  return min(n, cap);
+}
+
+__global__ void __launch_bounds__(S_THREADS)
+start_pack_kernel(const unsigned* __restrict__ plane, int* __restrict__ out,
+                  unsigned words, Div ww_div, Div hp_div, int Hp, int WW,
+                  int dx, int dy, int cap) {
+  // per warp: its 32 lanes' 32 output words each, 8 int4 per lane at a
+  // stride of 9 int4 (no bank conflicts on either side)
+  __shared__ int4 stage[S_THREADS / 32][32 * 9];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const unsigned first = blockIdx.x * S_THREADS + warp * 32;  // warp's word
+  const unsigned f = first + lane;
+  int4* mine = &stage[warp][lane * 9];
+  int* mine_w = reinterpret_cast<int*>(mine);
+  int n = 0, y = 0, w = 0;
+  unsigned st = 0u;
+  const unsigned* P = plane;
+  if (f < words) {
+    const unsigned nrow = div_of(f, ww_div);
+    w = (int)(f - nrow * (unsigned)WW);
+    n = (int)div_of(nrow, hp_div);
+    y = (int)(nrow - (unsigned)n * (unsigned)Hp);
+    P = plane + (size_t)n * Hp * WW;
+    const unsigned own = __ldg(plane + f);
+    if (own) st = own & ~window32(P, y - dy, 32 * w - dx, Hp, WW);
+  }
+  const int pos = 63 - (y & 7) * 8;          // minus (x & 7) = bit & 7
+  unsigned more = 0u;                        // runs past HOPS hops
+  if (dy == 0 && (dx == 1 || dx == -1)) {
+    const unsigned* row = P + (size_t)y * WW;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) mine[k] = make_int4(0, 0, 0, 0);
+    for (unsigned t = st; t; t &= t - 1) {
+      const int i = __ffs(t) - 1;
+      mine_w[i] = row_ones(row, WW, 32 * w + i, dx, cap) * 64 + pos - (i & 7);
+    }
+  } else {
+    // alive[k]: the starts whose run reaches hop k + 1, HOPS hops loaded
+    // at once
+    unsigned alive[HOPS];
+#pragma unroll
+    for (int k = 0; k < HOPS; ++k)
+      alive[k] = st ? window32(P, y + (k + 1) * dy, 32 * w + (k + 1) * dx,
+                               Hp, WW)
+                    : 0u;
+    unsigned a = st;
+#pragma unroll
+    for (int k = 0; k < HOPS; ++k) {
+      a = k + 1 < cap ? a & alive[k] : 0u;
+      alive[k] = a;
+    }
+    more = HOPS + 1 < cap ? a : 0u;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      int v[4] = {0, 0, 0, 0};
+      if ((st >> (4 * k)) & 0xFu) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int i = 4 * k + c;
+          if ((st >> i) & 1u) {
+            int fl = 1;
+#pragma unroll
+            for (int h = 0; h < HOPS; ++h) fl += (alive[h] >> i) & 1u;
+            v[c] = fl * 64 + pos - (i & 7);
+          }
+        }
       }
-      word = f * 64 + (63 - (y & 7) * 8 - (x & 7));
+      mine[k] = make_int4(v[0], v[1], v[2], v[3]);
     }
   }
-  out[((size_t)n * Hp + y) * Wp + x] = word;
+  // runs alive after HOPS hops: the warp finishes each together, 32 hops
+  // a round (lane j tests hop h + j; the first clear bit of the ballot
+  // ends the run), and adds the hops to the staged word
+  __syncwarp();
+  for (unsigned pending = __ballot_sync(0xFFFFFFFFu, more != 0u); pending;
+       pending &= pending - 1) {
+    const int L = __ffs(pending) - 1;
+    unsigned lm = __shfl_sync(0xFFFFFFFFu, more, L);
+    const int ly = __shfl_sync(0xFFFFFFFFu, y, L);
+    const int lw = __shfl_sync(0xFFFFFFFFu, w, L);
+    const int ln = __shfl_sync(0xFFFFFFFFu, n, L);
+    const unsigned* LP = plane + (size_t)ln * Hp * WW;
+    int ext = 0;                             // lane i: hops of the run at bit i
+    for (int h = HOPS + 1; lm && h < cap; h += 32) {
+      const int hh = h + lane;
+      const unsigned win =
+          hh < cap ? window32(LP, ly + hh * dy, 32 * lw + hh * dx, Hp, WW)
+                   : 0u;
+      for (unsigned t = lm; t; t &= t - 1) {
+        const int i = __ffs(t) - 1;
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, (win >> i) & 1u);
+        const int run = m == 0xFFFFFFFFu ? 32 : __ffs(~m) - 1;
+        if (lane == i) ext += run;
+        if (run < 32) lm &= ~(1u << i);
+      }
+    }
+    const unsigned had = __shfl_sync(0xFFFFFFFFu, more, L);
+    if ((had >> lane) & 1u)
+      reinterpret_cast<int*>(&stage[warp][L * 9])[lane] += ext * 64;
+  }
+  __syncwarp();
+  // the warp's 32 words are 1024 consecutive output words
+  int4* o = reinterpret_cast<int4*>(out) + (size_t)first * 8;
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const int j = lane + 32 * m;
+    if (first + j / 8 < words) o[j] = stage[warp][(j / 8) * 9 + j % 8];
+  }
 }
 
 }  // namespace
@@ -542,24 +740,36 @@ extern "C" int stvo_lsd_run_pack_multi(const void* bits, void* run, void* out,
   return (int)cudaGetLastError();
 }
 
-// aligned [N, H, W] one byte per pixel (0 / non-zero), run [N, Hp, Wp]
-// 16-bit scratch, out [N, Hp, Wp] i32, all on the device; one direction
-// (dx, dy); Hp a multiple of 8 (any number of tiles), Wp of 128.
+// aligned [N, H, W] one byte per pixel (0 or 1), 16-byte aligned; run
+// 32-bit scratch of N Hp Wp / 32 words (the run plane); out [N, Hp, Wp]
+// i32; all on the device; one direction (dx, dy); Hp a multiple of 8, Wp
+// of 128.
 extern "C" int stvo_lsd_run_pack(const void* aligned, void* run, void* out,
                                  int N, int H, int W, int Hp, int Wp, int dx,
                                  int dy, int cap, void* stream) {
-  if (Hp % 8 || Wp % TX || H > Hp || W > Wp || Hp > 65535 ||
-      abs(dx) > MAX_STEP || abs(dy) > MAX_STEP || (dx == 0 && dy == 0))
+  if (N < 0 || N > 65535 || Hp % 8 || Wp % 128 || H > Hp || W > Wp ||
+      (size_t)N * Hp * Wp >= (1ull << 31) || abs(dx) > MAX_STEP ||
+      abs(dy) > MAX_STEP || (dx == 0 && dy == 0) || cap < 1 ||
+      (uintptr_t)aligned % 16 || (uintptr_t)out % 16)
     return (int)cudaErrorInvalidValue;
-  const unsigned mask_v = abs(dx) >= abs(dy) ? 1u : 0u;
-  if (N > 0) {
+  const int WW = Wp / 32;
+  const size_t smem = (size_t)plane_smem_words(abs(dy), WW) * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        run_plane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (N > 0 && Hp > 0 && Wp > 0) {
     cudaStream_t s = (cudaStream_t)stream;
-    run_bits_kernel<<<dim3(Wp / TX, (Hp + TY - 1) / TY, N), THREADS, 0, s>>>(
-        (const unsigned char*)aligned, (unsigned short*)run, H, W, Hp, Wp, dx,
-        dy, mask_v);
-    pack_pixel_kernel<<<dim3((Wp + THREADS - 1) / THREADS, Hp, N), THREADS, 0,
-                        s>>>((const unsigned short*)run, (int*)out, Hp, Wp,
-                             dx, dy, cap);
+    run_plane_kernel<<<dim3((Hp + RT - 1) / RT, N), R_THREADS, smem, s>>>(
+        (const unsigned char*)aligned, (unsigned*)run, H, W, Hp, WW, dx, dy,
+        abs(dx) >= abs(dy) ? 1 : 0);
+    const unsigned words = (unsigned)((size_t)N * Hp * WW);
+    start_pack_kernel<<<(words + S_THREADS - 1) / S_THREADS, S_THREADS, 0,
+                        s>>>((const unsigned*)run, (int*)out, words,
+                             make_div((unsigned)WW), make_div((unsigned)Hp),
+                             Hp, WW, dx, dy, cap);
   }
   return (int)cudaGetLastError();
 }

@@ -197,16 +197,22 @@ def run_pack(aligned: torch.Tensor, dx: int, dy: int,
         return run_pack_plain(aligned, dx, dy, max_doublings)
     if aligned.device.type != "cuda":
         raise ValueError(f"run_pack: unsupported device {aligned.device}")
-    # one byte per pixel for the kernel; bool and int8 masks pass as they are
-    if aligned.dtype == torch.int32:
+    # one byte of 0 or 1 per pixel for the kernel: bool masks pass as they
+    # are
+    if aligned.dtype != torch.bool:
         aligned = aligned != 0
     mask = aligned.contiguous().view(torch.uint8)
+    if mask.data_ptr() % 16:
+        # the kernel reads the mask as aligned 16-byte vectors
+        mask = mask.clone()
     N, H, W = mask.shape
     Hp, Wp = run_pack_shape(H, W)
     out = torch.empty((N, Hp, Wp), dtype=torch.int32, device=mask.device)
     if N == 0:
         return out
-    scratch = torch.empty((N, Hp, Wp), dtype=torch.int16, device=mask.device)
+    # the run plane (one bit per pixel) between the kernel's passes
+    scratch = torch.empty((N, Hp, Wp // 32), dtype=torch.int32,
+                          device=mask.device)
     lib = build.library()
     with torch.cuda.device(mask.device):
         stream = torch.cuda.current_stream(mask.device).cuda_stream

@@ -1,6 +1,7 @@
 """Plain models of the decompositions that the CUDA kernels B1
-(csrc/fast_pack.cu) and B3 (csrc/lsd_run_pack.cu `stvo_lsd_run_pack_multi`)
-use, held on the CPU to the plain versions and to interpret-mode Pallas.
+(csrc/fast_pack.cu), B2 (csrc/patches.cu), B3 and B4 (csrc/lsd_run_pack.cu
+`stvo_lsd_run_pack_multi` and `stvo_lsd_run_pack`) use, held on the CPU
+to the plain versions and to interpret-mode Pallas.
 
 The kernels themselves run only on a card (tests/test_torch_kernels_cuda.py,
 chip_smoke.py).  These models repeat their arithmetic step for step in
@@ -9,12 +10,20 @@ numpy, so a wrong decomposition shows here first:
 - B1: the response on order-preserving integer keys of the raw pixel
   values with three-input min/max windows (no circle differences), and the
   exact 9-contiguous-sign classification of a positive response.
+- B2: the flat output cut into 16-byte groups per thread and block (groups
+  that cross patches and images, the partial last group, a ragged last
+  block), with the index divisions by host-computed magic numbers.
 - B3: run planes (one 32-bit word per direction, row and 32 columns,
   thickened and gap-closed with funnel shifts across words), then the run
   lengths by 32-step blocks of 32 chains: a tile of run bits transposed
   across the warp, trailing-ones counts inside the tile, and the carry
   from the tile before (the tile-local scan and its boundary carries),
   then the 8-row maximum of the start words.
+- B4: each bitmask word cut out of the aligned 16-byte vectors of mask
+  bytes that hold it (one multiply per 4 bytes), the run plane on the
+  round_up(H, 8) domain; then a lane per plane word: starts against the
+  window one step back, lengths by trailing ones along rows or by ANDed
+  hop windows, and the warp's 32-hop rounds for long runs.
 """
 
 import functools
@@ -443,3 +452,431 @@ def test_run_pack_design_equals_pallas(pallas_interpret, rng, case):
     ref = np.asarray(jlk._run_pack_multi_pallas(jnp.asarray(bits),
                                                 tuple(steps), md))
     np.testing.assert_array_equal(model, ref)
+
+
+# ---- B2: patch gather ----------------------------------------------------
+
+B2_THREADS, B2_UNROLL = 256, 4     # csrc/patches.cu: threads, groups/thread
+
+
+def _div_magic(d: int) -> tuple[int, int]:
+    """The kernel's make_div: x // d = (x * m) >> (31 + l) for x < 2^31."""
+    l = (d - 1).bit_length()
+    return -(-(1 << (31 + l)) // d), l
+
+
+def _div(x: np.ndarray, d: int) -> np.ndarray:
+    m, l = _div_magic(d)
+    return ((x.astype(np.uint64) * np.uint64(m))
+            >> np.uint64(31 + l)).astype(np.int64)
+
+
+def extract_model(img, y0, x0, patch):
+    """csrc/patches.cu: thread t of block b takes the 16-byte groups g =
+    (b * UNROLL + u) * THREADS + t of the flat [N * K * PY * PX] output;
+    word e = 4 g + c is element (j, r, col) of patch j = n * K + k, image
+    j // K (divisions by magic numbers, or by constants for 33 x 33); full
+    groups are one 16-byte store, the partial last group is written word
+    by word.  Returns the output and the number of groups that cross an
+    image boundary."""
+    N, H, W = img.shape
+    K = y0.shape[1]
+    PY, PX = (patch, patch) if isinstance(patch, int) else patch
+    per, total = PY * PX, N * K * PY * PX
+    bits = img.view(np.uint32).reshape(-1)
+    group_words = B2_UNROLL * B2_THREADS * 4
+    blocks = -(-total // group_words)
+    b, u, t = np.meshgrid(np.arange(blocks), np.arange(B2_UNROLL),
+                          np.arange(B2_THREADS), indexing="ij")
+    g = ((b * B2_UNROLL + u) * B2_THREADS + t).reshape(-1)
+    e = g[:, None] * 4 + np.arange(4)                      # [groups, 4]
+    valid = e < total
+    if (PY, PX) == (33, 33):
+        j = e // per
+        r = (e - j * per) // PX
+    else:
+        j = _div(e, per)
+        r = _div(e - j * per, PX)
+    col = e - j * per - r * PX
+    n = _div(j, K)
+    jc = np.minimum(j, N * K - 1)
+    y = y0.reshape(-1)[jc] + r
+    x = x0.reshape(-1)[jc] + col
+    inb = valid & (y >= 0) & (y < H) & (x >= 0) & (x < W)
+    src = (np.minimum(n, N - 1) * H + np.clip(y, 0, H - 1)) * W + np.clip(
+        x, 0, W - 1)
+    v = np.where(inb, bits[src], np.uint32(0))
+    out = np.full(total, 0xDEADBEEF, np.uint32)
+    count = np.zeros(total, np.int64)
+    full = e[:, 3] < total
+    out[e[full].reshape(-1)] = v[full].reshape(-1)         # 16-byte stores
+    np.add.at(count, e[full].reshape(-1), 1)
+    tail = valid & ~full[:, None]
+    out[e[tail]] = v[tail]                                 # word by word
+    np.add.at(count, e[tail], 1)
+    assert (count == 1).all(), "every output word is written once"
+    crossing = int((full & (n[:, 0] != n[:, 3])).sum())
+    return out.view(img.dtype).reshape(N, K, PY, PX), crossing
+
+
+def test_div_magic_exact(rng):
+    ds = list(range(1, 3000)) + [1089, 33, 2 ** 30, 2 ** 31 - 1] + list(
+        rng.integers(1, 2 ** 31 - 1, 300))
+    for d in ds:
+        m, _ = _div_magic(int(d))
+        assert m < 2 ** 32
+        x = np.concatenate([[0, 1, d - 1, d, d + 1, 2 ** 31 - 1],
+                            rng.integers(0, 2 ** 31, 50)]).astype(np.int64)
+        np.testing.assert_array_equal(_div(x, int(d)), x // int(d))
+
+
+B2_CASES = [
+    # N, H, W, K, patch, dtype, corners inside the image
+    (3, 90, 140, 37, 33, np.float32, True),      # groups cross images
+    (2, 70, 100, 1, 33, np.float32, True),       # K = 1
+    (5, 40, 60, 13, (5, 7), np.float32, True),   # N K PY PX % 4 != 0
+    (2, 40, 200, 45, (1, 64), np.uint32, True),  # the row mode
+    (3, 90, 140, 29, 33, np.float32, False),     # corners outside
+    (2, 40, 61, 23, (5, 7), np.int32, False),
+]
+
+
+def _b2_inputs(rng, N, H, W, K, patch, dtype, inside):
+    PY, PX = (patch, patch) if isinstance(patch, int) else patch
+    if dtype == np.float32:
+        img = ((rng.random((N, H, W)) - 0.3) * 255).astype(np.float32)
+    else:
+        img = rng.integers(0, 2 ** 32, (N, H, W), dtype=np.uint64).astype(
+            np.uint32).view(dtype)
+    if inside:
+        y0 = rng.integers(0, H - PY + 1, (N, K))
+        x0 = rng.integers(0, W - PX + 1, (N, K))
+        y0[:, 0], x0[:, 0] = H - PY, W - PX          # the last corner
+    else:
+        y0 = rng.integers(-PY - 2, H + 2, (N, K))
+        x0 = rng.integers(-PX - 2, W + 2, (N, K))
+    return img, y0.astype(np.int32), x0.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", range(len(B2_CASES)))
+def test_extract_design_equals_plain(rng, case):
+    N, H, W, K, patch, dtype, inside = B2_CASES[case]
+    img, y0, x0 = _b2_inputs(rng, N, H, W, K, patch, dtype, inside)
+    model, crossing = extract_model(img, y0, x0, patch)
+    from stvo_pl_tpu_torch.ops import patches as tpat
+    src = torch.from_numpy(img.view(np.int32) if dtype == np.uint32
+                           else img)
+    plain = tpat.extract_patches_plain(src, torch.from_numpy(y0),
+                                       torch.from_numpy(x0), patch).numpy()
+    np.testing.assert_array_equal(model.view(np.uint32),
+                                  plain.view(np.uint32))
+    per = model.shape[2] * model.shape[3]
+    if any((n * K * per) % 4 for n in range(1, N)):
+        assert crossing > 0, "a 16-byte group crosses an image boundary"
+
+
+@pytest.mark.parametrize("case", [0, 2, 3])
+def test_extract_design_equals_pallas(pallas_interpret, rng, case):
+    from stvo_pl_tpu.ops import patches as jpat
+    N, H, W, K, patch, dtype, inside = B2_CASES[case]
+    img, y0, x0 = _b2_inputs(rng, N, H, W, K, patch, dtype, inside)
+    model, _ = extract_model(img, y0, x0, patch)
+    ref = np.asarray(jpat._pallas_extract(jnp.asarray(img), jnp.asarray(y0),
+                                          jnp.asarray(x0), patch, 8))
+    np.testing.assert_array_equal(model.view(np.uint32),
+                                  ref.view(np.uint32))
+
+
+# ---- B4: one-direction run pack -------------------------------------------
+
+B4_RT = 16                 # csrc/lsd_run_pack.cu: rows of a pass-1 tile
+
+
+def _u32(x):
+    return (np.asarray(x, np.uint64) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32)
+
+
+def _byte_bits4(v: np.ndarray) -> np.ndarray:
+    """Bytes of 0 or 1 -> 4 bits: v * 0x01020408, bits 24..27 (byte k
+    lands on bit 24 + k; the partial products set distinct bits)."""
+    prod = (v.astype(np.uint64) * np.uint64(0x01020408)) & np.uint64(
+        0xFFFFFFFF)
+    return (prod >> np.uint64(24)).astype(np.uint32)
+
+
+def _vector_bits(mask: np.ndarray) -> np.ndarray:
+    """16 bits per aligned 16-byte vector of the flat byte mask (4 x
+    _byte_bits4 of its 32-bit words), two vectors of zeros appended: the
+    bytes past the mask read as 0 (the kernel's byte-wise tail)."""
+    pad = -len(mask) % 16 + 32
+    s = np.concatenate([mask, np.zeros(pad, np.uint8)])
+    words = s.view("<u4").astype(np.uint32).reshape(-1, 4)
+    bits = np.zeros(len(words), np.uint32)
+    for k in range(4):
+        bits |= _byte_bits4(words[:, k]) << np.uint32(4 * k)
+    return bits
+
+
+def _mask_word(V: np.ndarray, b: int) -> np.uint32:
+    """Bits of mask bytes b .. b + 31: the vectors at a, a + 16 and a +
+    32 (a = b rounded down to 16) as one 48-bit field, shifted by b % 16."""
+    c = b >> 4
+    v = (int(V[c]) | int(V[c + 1]) << 16 | int(V[c + 2]) << 32) >> (b & 15)
+    return np.uint32(v & 0xFFFFFFFF)
+
+
+def run_plane_model(mask: np.ndarray, dx: int, dy: int) -> np.ndarray:
+    """Pass 1 tile by tile: each bitmask word cut out of the three aligned
+    16-byte vectors that hold its 32 mask bytes, columns >= W cleared;
+    thick rows (zero outside the padded domain); run words by shifted /
+    col_mask.  -> [N, Hp, Wp / 32] uint32."""
+    N, H, W = mask.shape
+    Hp, Wp = tlk.run_pack_shape(H, W)
+    WW, SW, ady = Wp // 32, Wp // 32 + 2, abs(dy)
+    V = _vector_bits(mask.reshape(-1))
+    nw = -(-W // 32)
+    plane = np.zeros((N, Hp, WW), np.uint32)
+    for n in range(N):
+        for y0 in range(0, Hp, B4_RT):
+            AR, TR = B4_RT + 4 * ady + 2, B4_RT + 4 * ady
+            A = np.zeros((AR, SW), np.uint32)
+            for ar in range(AR):
+                y = y0 - 2 * ady - 1 + ar
+                if not 0 <= y < H:
+                    continue
+                rs = (n * H + y) * W
+                for w in range(nw):
+                    a = _mask_word(V, rs + 32 * w)
+                    if W - 32 * w < 32:
+                        a &= np.uint32((1 << (W - 32 * w)) - 1)
+                    A[ar, 1 + w] = a
+            T = np.zeros((TR, SW), np.uint32)
+            for tr in range(TR):
+                y = y0 - 2 * ady + tr
+                if not 0 <= y < Hp:
+                    continue
+                a = A[tr + 1, 1:-1]
+                if abs(dx) >= abs(dy):
+                    T[tr, 1:-1] = a | A[tr, 1:-1] | A[tr + 2, 1:-1]
+                else:
+                    T[tr, 1:-1] = (a | _u32(a.astype(np.uint64) << 1)
+                                   | (A[tr + 1, :-2] >> np.uint32(31))
+                                   | (a >> np.uint32(1))
+                                   | _u32(A[tr + 1, 2:].astype(np.uint64)
+                                          << 31))
+
+            def sh(tr, shift):
+                row = T[tr]
+                prev, cur, nxt = row[:-2], row[1:-1], row[2:]
+                if shift > 0:
+                    return _funnel_r(cur, nxt, shift)
+                if shift < 0:
+                    return _funnel_r(prev, cur, 32 + shift)
+                return cur.copy()
+
+            cols = _dom(1, WW, 0, 0)[0]
+            for r in range(B4_RT):
+                y = y0 + r
+                if y >= Hp:
+                    break
+                tr = r + 2 * ady
+                t0 = T[tr, 1:-1]
+                tm1, tm2 = sh(tr - dy, -dx), sh(tr - 2 * dy, -2 * dx)
+                tp1, tp2 = sh(tr + dy, dx), sh(tr + 2 * dy, 2 * dx)
+                dom_m = (_dom(1, WW, 0, -dx)[0] if 0 <= y - dy < Hp
+                         else 0 * cols)
+                dom_p = (_dom(1, WW, 0, dx)[0] if 0 <= y + dy < Hp
+                         else 0 * cols)
+                dil0 = t0 | tm1 | tp1
+                dilm = (tm2 | tm1 | t0) & dom_m
+                dilp = (t0 | tp1 | tp2) & dom_p
+                plane[n, y] = (dil0 & dilm & dilp) | t0
+    return plane
+
+
+def _window32(P, n, y, x):
+    """Bit j = run bit of row y at column x + j (0 outside the domain),
+    arrays of lanes: two words funnel-shifted by x & 31."""
+    N, Hp, WW = P.shape
+    w, b = x >> 5, x & 31
+
+    def word(wi):
+        ok = (y >= 0) & (y < Hp) & (wi >= 0) & (wi < WW)
+        return np.where(ok, P[n, np.clip(y, 0, Hp - 1),
+                              np.clip(wi, 0, WW - 1)], np.uint32(0))
+
+    lo = word(w)
+    hi = np.where(b > 0, word(w + 1), np.uint32(0))
+    v = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
+    return ((v >> b.astype(np.uint64)) & np.uint64(0xFFFFFFFF)).astype(
+        np.uint32)
+
+
+def _row_ones(P, n, y, x, dx, cap):
+    """Trailing (dx > 0) or leading (dx < 0) ones of the row's words from
+    column x, word by word, at most cap (arrays of starts)."""
+    N, Hp, WW = P.shape
+    total = np.zeros(x.shape, np.int64)
+    live = np.ones(x.shape, bool)
+    x = x.copy()
+    while live.any():
+        w, b = x >> 5, x & 31
+        word = np.where((w >= 0) & (w < WW),
+                        P[n, y, np.clip(w, 0, WW - 1)], 0).astype(np.uint64)
+        if dx > 0:
+            v = (~(word >> b.astype(np.uint64))) & np.uint64(0xFFFFFFFF)
+            t = np.where(v == 0, 32, _ffs0(v.astype(np.uint32)))
+            avail = 32 - b
+        else:
+            v = (~(word << (31 - b).astype(np.uint64))) & np.uint64(
+                0xFFFFFFFF)
+            t = 32 - np.where(v == 0, 0, np.floor(np.log2(np.maximum(
+                v, 1))).astype(np.int64) + 1)                # __clz
+            avail = b + 1
+        total = np.where(live, total + t, total)
+        live &= (t >= avail) & (total < cap)
+        x = x + dx * t
+    return np.minimum(total, cap)
+
+
+B4_HOPS = 8                # hops of every start loaded at once
+
+
+def start_pack_model(P: np.ndarray, dx: int, dy: int, cap: int):
+    """Pass 2: a lane per plane word (32 pixels); starts = own & ~window
+    one step back; lengths by row_ones (dy = 0, |dx| = 1), or by ANDing
+    the windows of hops 1 .. HOPS (a start's length up to HOPS + 1 is a
+    count of set bits), then, for a word with runs alive after them, the
+    warp's rounds of 32 hops (the word's window at hop h + j from lane j,
+    the first clear bit of each run's ballot ends it); every word written
+    once.  Returns the words and the number of warp rounds."""
+    N, Hp, WW = P.shape
+    Wp = WW * 32
+    n, y, w = np.meshgrid(np.arange(N), np.arange(Hp), np.arange(WW),
+                          indexing="ij")
+    n, y, w = n.reshape(-1), y.reshape(-1), w.reshape(-1)
+    own = P[n, y, w]
+    st = own & ~_window32(P, n, y - dy, 32 * w - dx)
+    bit = np.arange(32, dtype=np.uint32)
+    is_start = ((st[:, None] >> bit) & np.uint32(1)) == 1     # [lanes, 32]
+    f = np.zeros((len(w), 32), np.int64)
+    rounds = 0
+    if dy == 0 and abs(dx) == 1:
+        lane, i = np.nonzero(is_start)
+        f[lane, i] = _row_ones(P, n[lane], y[lane], 32 * w[lane] + i, dx,
+                               cap)
+    else:
+        a = st.copy()
+        f[is_start] = 1
+        for k in range(1, B4_HOPS + 1):
+            win = _window32(P, n, y + k * dy, 32 * w + k * dx)
+            a = a & win if k < cap else np.zeros_like(a)
+            f += (((a[:, None] >> bit) & np.uint32(1)) == 1)
+        more = a if B4_HOPS + 1 < cap else np.zeros_like(a)
+        for lane in np.nonzero(more)[0]:         # one word at a time
+            lm, h = int(more[lane]), B4_HOPS + 1
+            while lm and h < cap:
+                hh = h + np.arange(32)
+                win = np.where(hh < cap, _window32(
+                    P, np.full(32, n[lane]), y[lane] + hh * dy,
+                    32 * w[lane] + hh * dx), 0)
+                for i in range(32):
+                    if (lm >> i) & 1:
+                        b = ((win >> i) & 1) == 1          # the ballot
+                        t = 32 if b.all() else int(np.argmin(b))
+                        f[lane, i] += t
+                        if t < 32:
+                            lm &= ~(1 << i)
+                h += 32
+                rounds += 1
+    pos = 63 - (y[:, None] & 7) * 8 - (bit[None, :] & 7).astype(np.int64)
+    words = np.where(is_start, f * 64 + pos, 0)
+    return words.reshape(N, Hp, Wp).astype(np.int32), rounds
+
+
+def _b4_mask(rng, shape, step, density, chains, length):
+    """Uniform noise plus straight chains of `length` hops along the step
+    from random starts; the last row and column keep set bits."""
+    N, H, W = shape
+    dx, dy = step
+    m = rng.random(shape) < density
+    for n in range(N):
+        for _ in range(chains):
+            y, x = int(rng.integers(0, H)), int(rng.integers(0, W))
+            for _k in range(length):
+                if not (0 <= y < H and 0 <= x < W):
+                    break
+                m[n, y, x] = True
+                y, x = y + dy, x + dx
+    m[:, -1, ::4] = True
+    m[:, ::3, -1] = True
+    return m
+
+
+DENSE_STEPS = tlsd.direction_steps(12)
+# steps with dy < 0, dy = 0 with |dx| >= 2 (the walk along a row) and
+# dx = -1 along rows (leading ones)
+B4_OTHER = [(-1, 0), (4, 0), (-2, 0), (1, -4), (-4, -1), (3, -2), (0, -1)]
+
+
+@pytest.mark.parametrize("step", DENSE_STEPS + B4_OTHER)
+def test_run_pack_one_design_equals_plain(rng, step):
+    """H % 8 != 0, W % 128 != 0 and set bits in the last row and column,
+    every cap of 1, 8 and 256."""
+    dx, dy = step
+    mask = _b4_mask(rng, (2, 37, 150), step, 0.12, 4, 40)
+    P = run_plane_model(mask, dx, dy)
+    t = torch.from_numpy(mask)
+    for md in (0, 3, 8):
+        model, _ = start_pack_model(P, dx, dy, 1 << md)
+        plain = tlk.run_pack_plain(t, dx, dy, md).numpy()
+        np.testing.assert_array_equal(model, plain)
+        assert (plain > 0).sum() > 20
+        assert (plain >> 6).max() == min(1 << md, (plain >> 6).max())
+    # runs start in the pad below and right of the image
+    assert (plain[:, 37:] > 0).any() or (plain[:, :, 150:] > 0).any()
+
+
+@pytest.mark.parametrize("shape,step,md", [
+    ((1, 20, 300), (1, 0), 8),       # a 270-pixel row run at cap 256
+    ((1, 20, 300), (-1, 0), 8),
+    ((1, 300, 40), (0, 1), 8),       # a column run at cap 256 (walks)
+    ((1, 300, 40), (0, -1), 8),
+    ((2, 45, 130), (-4, 1), 3),      # runs at cap 8
+    ((2, 45, 130), (1, 4), 0),       # cap 1
+])
+def test_run_pack_one_design_runs_at_cap(rng, shape, step, md):
+    dx, dy = step
+    N, H, W = shape
+    mask = rng.random(shape) < 0.05
+    if dy == 0:
+        mask[:, 5, 10:280] = True
+    elif dx == 0:
+        mask[:, 10:290, 7] = True
+    else:
+        for n in range(N):
+            y, x = (2, 100) if dx < 0 else (2, 5)
+            while 0 <= y < H and 0 <= x < W:
+                mask[n, y, x] = True
+                y, x = y + dy, x + dx
+    P = run_plane_model(mask, dx, dy)
+    model, rounds = start_pack_model(P, dx, dy, 1 << md)
+    plain = tlk.run_pack_plain(torch.from_numpy(mask), dx, dy, md).numpy()
+    np.testing.assert_array_equal(model, plain)
+    assert ((plain >> 6) == 1 << md).any(), "a run reaches the cap"
+    if dy != 0 and md == 8:
+        assert rounds >= 8, "the warp finishes the long runs"
+
+
+@pytest.mark.parametrize("step,md", [((4, 3), 8), ((-1, 4), 3), ((1, 0), 8),
+                                     ((-4, 1), 0)])
+def test_run_pack_one_design_equals_pallas(pallas_interpret, rng, step, md):
+    from stvo_pl_tpu.ops import lsd_kernel as jlk
+    dx, dy = step
+    mask = _b4_mask(rng, (2, 45, 130), step, 0.15, 4, 60)
+    model, _ = start_pack_model(run_plane_model(mask, dx, dy), dx, dy,
+                                1 << md)
+    ref = np.asarray(jlk._run_pack_pallas(jnp.asarray(mask), dx, dy, md))
+    np.testing.assert_array_equal(model, ref)
+    assert (ref > 0).sum() > 20

@@ -76,6 +76,46 @@ def test_extract_patches_kernel_equals_plain(cuda, patch, dtype):
     assert k.dtype == img.dtype and torch.equal(k, p)
 
 
+@pytest.mark.parametrize("N,H,W,K,patch,dtype,where", [
+    (1, 50, 80, 1, 33, torch.float32, "edge"),        # K = 1
+    (3, 90, 140, 37, 33, torch.float32, "edge"),      # N K PY PX % 4 = 3
+    (5, 40, 61, 13, (5, 7), torch.float32, "edge"),
+    (3, 90, 140, 29, 33, torch.float32, "outside"),
+    (2, 40, 200, 45, (1, 64), torch.uint32, "edge"),  # the row mode
+    (2, 40, 200, 1031, (1, 64), torch.uint32, "outside"),
+    (16, 370, 1226, 386, 33, torch.float32, "edge"),  # level 0 of the step
+])
+def test_extract_patches_kernel_edge_cases(cuda, N, H, W, K, patch, dtype,
+                                           where):
+    """K = 1 and K a multiple of no block size, outputs whose word count
+    is not a multiple of 4 (the partial last 16-byte group), corners at
+    x0 = W - PX and y0 = H - PY or outside the image, the u32 row mode."""
+    from stvo_pl_tpu_torch.ops import patches
+    PY, PX = (patch, patch) if isinstance(patch, int) else patch
+    g = torch.Generator(device=cuda).manual_seed(5)
+    img = (torch.rand((N, H, W), generator=g, device=cuda) - 0.3) * 255
+    if dtype == torch.uint32:
+        img = img.view(torch.uint32)
+    if where == "edge":
+        y0 = torch.randint(0, H - PY + 1, (N, K), generator=g, device=cuda,
+                           dtype=torch.int32)
+        x0 = torch.randint(0, W - PX + 1, (N, K), generator=g, device=cuda,
+                           dtype=torch.int32)
+        y0[:, 0], x0[:, 0] = H - PY, W - PX
+    else:
+        y0 = torch.randint(-PY - 2, H + 2, (N, K), generator=g, device=cuda,
+                           dtype=torch.int32)
+        x0 = torch.randint(-PX - 2, W + 2, (N, K), generator=g, device=cuda,
+                           dtype=torch.int32)
+    before = patches.extract_patches.launches
+    k = patches.extract_patches(img, y0, x0, patch)
+    p = patches.extract_patches_plain(img, y0, x0, patch)
+    torch.cuda.synchronize()
+    assert patches.extract_patches.launches == before + 1
+    assert k.dtype == img.dtype and k.shape == (N, K, PY, PX)
+    assert torch.equal(k.view(torch.int32), p.view(torch.int32))
+
+
 @pytest.mark.parametrize("shape,n_dirs,density,border", [
     ((2, 70, 150), 8, 0.3, True),       # H % 64 != 0, set bits at the border
     ((3, 64, 128), 16, 0.1, False),     # no padding at all
@@ -187,6 +227,59 @@ def test_run_pack_kernel_equals_plain(cuda, shape, step, density, border,
     for md in (0, 3):
         assert torch.equal(lsd_kernel.run_pack(mask, dx, dy, md),
                            lsd_kernel.run_pack_plain(mask, dx, dy, md))
+
+
+def _long_run_mask(shape, step, seed):
+    """2% noise plus, per image, 8 straight chains of the step 40-300 hops
+    long (the first 300) inside the image; the last row and column set at
+    every third pixel."""
+    rng = np.random.default_rng(seed)
+    n, H, W = shape
+    dx, dy = step
+    mask = rng.random(shape) < 0.02
+    for i in range(n):
+        for c in range(8):
+            hops = 300 if c == 0 else int(rng.integers(40, 301))
+            sy, sx = (hops - 1) * abs(dy), (hops - 1) * abs(dx)
+            y0 = int(rng.integers(0, H - sy)) + (sy if dy < 0 else 0)
+            x0 = int(rng.integers(0, W - sx)) + (sx if dx < 0 else 0)
+            k = np.arange(hops)
+            mask[i, y0 + k * dy, x0 + k * dx] = True
+    mask[:, -1, ::3] = True
+    mask[:, ::3, -1] = True
+    return mask
+
+
+@pytest.mark.parametrize("max_doublings", [0, 3, 8])
+def test_run_pack_kernel_long_runs(cuda, max_doublings):
+    """1280 x 1280 masks with runs longer than the cap in each of the 12
+    dense directions (and two steps with dy < 0 and dy = 0, |dx| = 4)."""
+    from stvo_pl_tpu_torch.ops import lsd, lsd_kernel
+    for step in lsd.direction_steps(12) + [(4, 0), (-3, -2)]:
+        dx, dy = step
+        mask = torch.from_numpy(_long_run_mask((2, 1280, 1280), step,
+                                               max_doublings)).to(cuda)
+        k = lsd_kernel.run_pack(mask, dx, dy, max_doublings)
+        p = lsd_kernel.run_pack_plain(mask, dx, dy, max_doublings)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), (step, int((k != p).sum()))
+        assert bool(((k >> 6) == 1 << max_doublings).any()), step
+
+
+def test_run_pack_kernel_unaligned_mask(cuda):
+    """A mask view that does not start on 16 bytes is copied, not read
+    misaligned; a mask of fewer than 16 bytes is read byte by byte, not
+    past its end."""
+    from stvo_pl_tpu_torch.ops import lsd_kernel
+    g = torch.Generator(device=cuda).manual_seed(6)
+    flat = torch.rand(3 * 97 * 130 + 5, generator=g, device=cuda) < 0.3
+    mask = flat[5:].view(3, 97, 130)
+    assert mask.data_ptr() % 16
+    k = lsd_kernel.run_pack(mask, -4, 1)
+    assert torch.equal(k, lsd_kernel.run_pack_plain(mask, -4, 1))
+    tiny = torch.ones((1, 3, 4), dtype=torch.bool, device=cuda)   # 12 bytes
+    assert torch.equal(lsd_kernel.run_pack(tiny, 1, 0),
+                       lsd_kernel.run_pack_plain(tiny, 1, 0))
 
 
 @pytest.mark.parametrize("shape1,shape2", [
