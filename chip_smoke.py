@@ -4,15 +4,16 @@
 
 Builds the CUDA kernels from stvo_pl_tpu_torch/csrc, holds each kernel
 (FAST pack, patch gather, the all-direction and the one-direction LSD run
-pack, XOR + popcount Hamming) against its plain PyTorch version at the
+pack, the tensor-core Hamming) against its plain PyTorch version at the
 shapes of the paths that run it (FAST also on a constant image, a dot
 field and a 4x4 tiling; the patch gather also with K = 1, odd K, partial
 last 16-byte groups, corners at the image's last row and column or
 outside it, and u32 rows; both run packs also on runs longer than their
 cap, in all 16 directions for the all-direction one and in the 12 dense
-directions for the one-direction one, with caps 1, 8 and 256), times
-them (B2 per pyramid level, B4 per direction and per pass), then drives
-the default point + line VO
+directions for the one-direction one, with caps 1, 8 and 256; Hamming
+with the edge words 0, 0xFFFFFFFF, 0x80000000 and 0x7FFFFFFF and pairs
+at distance 0 and 256), times them (B2 per pyramid level, B4 per
+direction and per pass), then drives the default point + line VO
 step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
 synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
 checks the trajectories.  Over the first 6 frames of the same sequences it
@@ -41,8 +42,10 @@ import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the float32 rate
 # outside the tensor cores.  Used for the least-time bounds; 32-bit integer
-# operations are counted against the same rate (the card issues them no
-# faster), so an integer kernel's bound is a lower one.
+# operations are counted against the same rate, which the card does not
+# reach for them (CUDA's throughput table, compute 9.0: 64 adds or logic
+# operations per clock and SM against 128 float32, and 16 POPC, a quarter
+# of the 32-bit integer rate), so an integer kernel's bound is a lower one.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 # FAST response operations per pixel in the reference's shared-subtree
@@ -59,8 +62,13 @@ RUN_PACK_OPS_PER_PIXEL_DIR = 2 + 2 + 2 + 3 + 3 + 2 + 4 + 1
 # the one-direction kernel: the same without the hop weight and without the
 # 8-row maximum
 RUN_PACK_ONE_OPS_PER_PIXEL = RUN_PACK_OPS_PER_PIXEL_DIR - 2
-# XOR + popcount Hamming: 8 XOR, 8 popcounts and 8 adds per pair
+# XOR + popcount Hamming: 8 XOR, 8 popcounts and 8 adds per pair (the
+# kernel does the pair's work on the tensor cores; its bound is the output's
+# bytes either way)
 HAMMING_OPS_PER_PAIR = 24
+# B5's edge words, each in rows of its own: 0, 0xFFFFFFFF, 0x80000000 and
+# 0x7FFFFFFF
+HAMMING_EDGE_WORDS = (0, -1, -2 ** 31, 2 ** 31 - 1)
 
 # device-side sleep ahead of each timed batch (~20 ms at the H100's clock)
 SLEEP_CYCLES = 40_000_000
@@ -603,7 +611,7 @@ def main() -> None:
               bound_ms=b4_bnd, bound_by=b4_by, library_ms=None)
     del b4_cases, ang, mag, strong       # the masks stay for the pass split
 
-    # ---- 5c. B5: XOR + popcount Hamming --------------------------------
+    # ---- 5c. B5: Hamming distances on the tensor cores -----------------
     def words(*shape):
         return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gnoise,
                              device=dev, dtype=torch.int32)
@@ -619,6 +627,10 @@ def main() -> None:
     b5_rows = {}
     for name, (d1, d2) in b5_shapes.items():
         d2[..., :5, :] = d1[..., :5, :]           # pairs at distance 0
+        for i, v in enumerate(HAMMING_EDGE_WORDS):
+            d1[..., 5 + i, :] = v
+            d2[..., -1 - i, :] = v
+        d1[..., 9, :] = ~d2[..., 9, :]            # pairs at distance 256
         k = hamming.hamming_matrix_popc(d1, d2)
         p = hamming.hamming_matrix_xla(d1, d2)
         m = hamming.hamming_matrix_mxu(d1, d2)
@@ -628,8 +640,9 @@ def main() -> None:
                 f"{int((k != p).sum())} pairs")
         require(torch.equal(k, m), f"B5 {name}: kernel != bf16 product at "
                 f"{int((k != m).sum())} pairs")
-        require(int(k[..., 0, 0].max()) == 0 and int(k.max()) > 128,
-                f"B5 {name}: distances out of range")
+        require(int(k[..., 0, 0].max()) == 0
+                and int(k[..., 9, 9].min()) == 256,
+                f"B5 {name}: distances 0 and 256 not found")
         del p, m
         pairs = k.numel()
         bnd, by = bound_ms((d1.numel() + d2.numel() + pairs) * 4,

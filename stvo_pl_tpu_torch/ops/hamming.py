@@ -7,10 +7,11 @@ arithmetic, so every extracted field is masked after the shift.
   * `hamming_matrix_mxu`: bits unpacked to +/-1 and ONE matrix product,
     d = (256 - <a, b>) / 2.  Exact: every partial sum is an integer of
     magnitude <= 256 (bf16 operands on the GPU, float32 on the CPU).
-  * `hamming_matrix_popc`: XOR + popcount as a CUDA kernel
+  * `hamming_matrix_popc`: XOR + popcount distances from a CUDA kernel
     (`csrc/hamming.cu`, the port of the Pallas kernel
-    hamming_matrix_pallas) on CUDA tensors, any N and M; CPU tensors take
-    its plain version `hamming_matrix_xla`.  `hamming_matrix(...,
+    hamming_matrix_pallas: 1-bit tensor-core MMA, popc(a & b) per pair)
+    on CUDA tensors, any N and M; CPU tensors take its plain version
+    `hamming_matrix_xla`.  `hamming_matrix(...,
     use_mxu=False)` is this path.
   * `hamming_matrix_xla`: XOR + popcount, the plain formulation.
   * HAMMING2 (WTA_K = 3/4): the same two formulations over 2-bit cells.
@@ -94,6 +95,8 @@ def hamming_matrix_popc(desc1: torch.Tensor,
     a = desc1.expand(lead + (N, DESC_WORDS)).reshape(-1, N, DESC_WORDS)
     b = desc2.expand(lead + (M, DESC_WORDS)).reshape(-1, M, DESC_WORDS)
     a, b = a.contiguous(), b.contiguous()
+    # the kernel reads each descriptor as 8-byte word pairs
+    a, b = (x if x.data_ptr() % 8 == 0 else x.clone() for x in (a, b))
     B = a.shape[0]
     out = torch.empty((B, N, M), dtype=torch.int32, device=a.device)
     if out.numel() == 0:

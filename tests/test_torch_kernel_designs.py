@@ -24,6 +24,11 @@ numpy, so a wrong decomposition shows here first:
   round_up(H, 8) domain; then a lane per plane word: starts against the
   window one step back, lengths by trailing ones along rows or by ANDed
   hop windows, and the warp's 32-hop rounds for long runs.
+- B5: the lanes' fragments of the 1-bit MMA (m16n8k256 .and.popc) read
+  straight from the descriptor words, popc(a) and popc(b) summed over a
+  quad and shuffled to the lanes that hold each column, the epilogue
+  popc(a) + popc(b) - 2 popc(a & b), the warp's tile staged and stored
+  as 16-byte row pieces, the ragged edge masked.
 """
 
 import functools
@@ -36,6 +41,7 @@ import torch
 from stvo_pl_tpu_torch.ops import camera as tcam
 from stvo_pl_tpu_torch.ops import fast as tfast
 from stvo_pl_tpu_torch.ops import fast_kernel as tfk
+from stvo_pl_tpu_torch.ops import hamming as tham
 from stvo_pl_tpu_torch.ops import lsd as tlsd
 from stvo_pl_tpu_torch.ops import lsd_kernel as tlk
 from stvo_pl_tpu_torch.utils import synthetic as tsyn
@@ -880,3 +886,175 @@ def test_run_pack_one_design_equals_pallas(pallas_interpret, rng, step, md):
     ref = np.asarray(jlk._run_pack_pallas(jnp.asarray(mask), dx, dy, md))
     np.testing.assert_array_equal(model, ref)
     assert (ref > 0).sum() > 20
+
+
+# ---- B5: Hamming distances on the tensor cores ----------------------------
+
+# csrc/hamming.cu: a block of 2 x 2 warps, each warp a 32 x 32 tile of
+# 16 x 8 MMA fragments
+B5_WN, B5_WM, B5_WARPS_N, B5_WARPS_M = 32, 32, 2, 2
+B5_LANE = np.arange(32)
+B5_G, B5_T = B5_LANE >> 2, B5_LANE & 3
+B5_EDGE_WORDS = np.array([0, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF], np.uint32)
+
+
+def _popc(x: np.ndarray) -> np.ndarray:
+    x = np.ascontiguousarray(x, dtype=np.uint32)
+    return np.unpackbits(x.view(np.uint8).reshape(x.shape + (4,)),
+                         axis=-1).sum(-1).astype(np.int32)
+
+
+def _quad_sum(v: np.ndarray) -> np.ndarray:
+    """__shfl_xor_sync by 1, then by 2: every lane of a quad holds the
+    quad's sum."""
+    v = v + v[B5_LANE ^ 1]
+    return v + v[B5_LANE ^ 2]
+
+
+def _mma_and_popc(af: np.ndarray, bf: np.ndarray) -> np.ndarray:
+    """One warp's mma.m16n8k256 .b1 .and.popc with C = 0, from and to the
+    lanes' registers in the PTX ISA's fragment layout: af [32, 4] and bf
+    [32, 2] 32-bit words -> d [32, 4]."""
+    A = np.zeros((16, 8), np.uint32)        # rows x k-blocks of 32 bits
+    Bm = np.zeros((8, 8), np.uint32)        # columns x k-blocks
+    A[B5_G, B5_T], A[B5_G + 8, B5_T] = af[:, 0], af[:, 1]
+    A[B5_G, 4 + B5_T], A[B5_G + 8, 4 + B5_T] = af[:, 2], af[:, 3]
+    Bm[B5_G, B5_T], Bm[B5_G, 4 + B5_T] = bf[:, 0], bf[:, 1]
+    D = _popc(A[:, None, :] & Bm[None, :, :]).sum(-1)      # [16, 8]
+    c = 2 * B5_T
+    return np.stack([D[B5_G, c], D[B5_G, c + 1], D[B5_G + 8, c],
+                     D[B5_G + 8, c + 1]], axis=1)
+
+
+def hamming_mma_model(d1: np.ndarray, d2: np.ndarray):
+    """d1 [B, N, 8] x d2 [B, M, 8] uint32 -> ([B, N, M] int32, the number
+    of times each output was written), block by block and warp by warp as
+    the kernel computes and stores them."""
+    Bn, N, _ = d1.shape
+    M = d2.shape[1]
+    FN, FM = B5_WN // 16, B5_WM // 8
+    TN, TM = B5_WN * B5_WARPS_N, B5_WM * B5_WARPS_M
+    LPR = B5_WM // 4
+    RPI = 32 // LPR
+    out = np.zeros((Bn, N, M), np.int32)
+    writes = np.zeros((Bn, N, M), np.int32)
+    for b in range(Bn):
+        a = d1[b].reshape(N, 4, 2)           # word pairs (2t, 2t + 1)
+        c = d2[b].reshape(M, 4, 2)
+        for n_blk in range(0, N, TN):
+            for m_blk in range(0, M, TM):
+                for warp in range(B5_WARPS_N * B5_WARPS_M):
+                    n0 = n_blk + (warp // B5_WARPS_M) * B5_WN
+                    m0 = m_blk + (warp % B5_WARPS_M) * B5_WM
+                    af, pa = [], []
+                    for f in range(FN):
+                        x = a[np.minimum(n0 + 16 * f + B5_G, N - 1), B5_T]
+                        y = a[np.minimum(n0 + 16 * f + B5_G + 8, N - 1),
+                              B5_T]
+                        af.append(np.stack([x[:, 0], y[:, 0], x[:, 1],
+                                            y[:, 1]], axis=1))
+                        pa.append((_quad_sum(_popc(x).sum(-1)),
+                                   _quad_sum(_popc(y).sum(-1))))
+                    bf, pb = [], []
+                    for j in range(FM):
+                        z = c[np.minimum(m0 + 8 * j + B5_G, M - 1), B5_T]
+                        bf.append(z)
+                        p = _quad_sum(_popc(z).sum(-1))
+                        pb.append((p[8 * B5_T], p[8 * B5_T + 4]))
+                    st = np.zeros((B5_WN, B5_WM), np.int32)
+                    for f in range(FN):
+                        for j in range(FM):
+                            d = _mma_and_popc(af[f], bf[j])
+                            col = 8 * j + 2 * B5_T
+                            for h in range(2):
+                                r = 16 * f + B5_G + 8 * h
+                                st[r, col] = pa[f][h] + pb[j][0] - 2 * d[:, 2 * h]
+                                st[r, col + 1] = (pa[f][h] + pb[j][1]
+                                                  - 2 * d[:, 2 * h + 1])
+                    # the stores: LPR lanes a row, 4 words a lane
+                    cq = 4 * (B5_LANE % LPR)
+                    m = m0 + cq
+                    vec = M % 4 == 0
+                    for i in range(B5_WN // RPI):
+                        r = RPI * i + B5_LANE // LPR
+                        n = n0 + r
+                        for lane in np.flatnonzero((n < N) & (m < M)):
+                            k = 4 if vec else min(4, M - m[lane])
+                            out[b, n[lane], m[lane]:m[lane] + k] = \
+                                st[r[lane], cq[lane]:cq[lane] + k]
+                            writes[b, n[lane], m[lane]:m[lane] + k] += 1
+    return out, writes
+
+
+def _b5_words(rng, shape):
+    """Random words, the edge words in rows of their own, and pairs at
+    distance 0 and 256."""
+    d = rng.integers(0, 2 ** 32, shape, dtype=np.uint64).astype(np.uint32)
+    flat = d.reshape(-1, 8)
+    for i, v in enumerate(B5_EDGE_WORDS[:len(flat)]):
+        flat[i] = v
+    if len(flat) > 5:
+        flat[4] = np.where(np.arange(8) % 2 == 0, 0x80000000, 0x7FFFFFFF)
+        flat[5] = rng.integers(0, 2 ** 32, 8, dtype=np.uint64)
+    return d
+
+
+def _b5_pair(rng, s1, s2):
+    d1, d2 = _b5_words(rng, s1), _b5_words(rng, s2)
+    f1, f2 = d1.reshape(-1, 8), d2.reshape(-1, 8)
+    k = min(len(f1), len(f2))
+    if k > 5:
+        f2[k - 1] = f1[5]               # distance 0
+        f2[k - 2] = ~f1[5]              # distance 256
+        f2[0] = ~f1[1]                  # 0xFFFFFFFF against 0: 256
+    return d1, d2
+
+
+@pytest.mark.parametrize("s1,s2", [
+    ((1, 1, 8), (1, 1, 8)),
+    ((1, 3, 8), (1, 257, 8)),           # M % 4 != 0: 4-byte stores
+    ((2, 65, 8), (2, 3, 8)),
+    ((1, 70, 8), (1, 130, 8)),          # ragged blocks and warp tiles
+    ((1, 97, 8), (1, 300, 8)),          # the line capacity's columns
+    ((2, 33, 8), (2, 68, 8)),
+])
+def test_hamming_design_equals_plain(rng, s1, s2):
+    d1, d2 = _b5_pair(rng, s1, s2)
+    model, writes = hamming_mma_model(d1, d2)
+    assert (writes == 1).all(), "every output written once"
+    plain = tham.hamming_matrix_xla(torch.from_numpy(d1.view(np.int32)),
+                                    torch.from_numpy(d2.view(np.int32)))
+    np.testing.assert_array_equal(model, plain.numpy())
+    if min(s1[1], s2[1]) > 5:
+        assert model.min() == 0 and model.max() == 256
+
+
+def test_hamming_design_fragments_cover_every_word(rng):
+    """A and B fragments hold each descriptor's 8 words once, at the same
+    k-blocks: an MMA of a row with itself counts its set bits."""
+    d = _b5_words(rng, (16, 8))
+    x, y = d.reshape(16, 4, 2)[B5_G, B5_T], d.reshape(16, 4, 2)[B5_G + 8,
+                                                                B5_T]
+    af = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], axis=1)
+    for j in range(2):
+        z = d.reshape(16, 4, 2)[8 * j + B5_G, B5_T]
+        D = _mma_and_popc(af, z)
+        rows = np.stack([B5_G, B5_G, B5_G + 8, B5_G + 8], axis=1)
+        cols = 8 * j + np.stack([2 * B5_T, 2 * B5_T + 1] * 2, axis=1)
+        ref = _popc(d[rows] & d[cols]).sum(-1)
+        np.testing.assert_array_equal(D, ref)
+    assert _popc(d).sum(-1)[0] == 0 and _popc(d).sum(-1)[1] == 256
+
+
+@pytest.mark.parametrize("n,m", [(256, 256), (512, 256)])
+def test_hamming_design_equals_pallas(pallas_interpret, rng, n, m):
+    from stvo_pl_tpu.ops import hamming as jham
+    d1, d2 = _b5_pair(rng, (1, n, 8), (1, m, 8))
+    model, _ = hamming_mma_model(d1, d2)
+    ref = np.asarray(jham.hamming_matrix_pallas(jnp.asarray(d1[0]),
+                                                jnp.asarray(d2[0])))
+    np.testing.assert_array_equal(model[0], ref)
+    plain = tham.hamming_matrix_xla(torch.from_numpy(d1[0].view(np.int32)),
+                                    torch.from_numpy(d2[0].view(np.int32)))
+    np.testing.assert_array_equal(plain.numpy(), ref)
+    assert ref.min() == 0 and ref.max() == 256

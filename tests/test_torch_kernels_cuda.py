@@ -288,8 +288,14 @@ def test_run_pack_kernel_unaligned_mask(cuda):
     ((8, 1200, 8), (8, 1200, 8)),       # the VO step's point matching
     ((3, 1, 70, 8), (2, 90, 8)),        # leading dims broadcast
     ((1, 8), (1, 8)),
+    ((70, 8), (1, 8)),                  # M % 4 != 0: 4-byte stores
+    ((70, 8), (3, 8)),
+    ((9, 8), (257, 8)),
+    ((8, 300, 8), (8, 300, 8)),         # the VO step's line matching
 ])
 def test_hamming_popc_kernel_equals_plain(cuda, shape1, shape2):
+    """Random words, with the edge words 0, 0xFFFFFFFF, 0x80000000 and
+    0x7FFFFFFF in rows of their own and pairs at distance 0 and 256."""
     from stvo_pl_tpu_torch.ops import hamming
     g = torch.Generator(device=cuda).manual_seed(4)
     lo, hi = -2 ** 31, 2 ** 31 - 1
@@ -299,6 +305,15 @@ def test_hamming_popc_kernel_equals_plain(cuda, shape1, shape2):
                        dtype=torch.int32)
     d1[..., 0, :] = d2.reshape(-1, 8)[0]      # pairs at distance 0
     d2[..., 0, :] = d2.reshape(-1, 8)[0]
+    n1, n2 = shape1[-2], shape2[-2]
+    for i, v in enumerate((0, -1, lo, hi)):
+        if i + 1 < n1:
+            d1[..., i + 1, :] = v
+        if i + 1 < n2:
+            d2[..., n2 - 1 - i, :] = v
+    if n1 > 5 and n2 > 1:                     # pairs at distance 256
+        d2[..., 1, :] = d2.reshape(-1, 8)[1]
+        d1[..., 5, :] = ~d2.reshape(-1, 8)[1]
     before = hamming.hamming_matrix_popc.launches
     k = hamming.hamming_matrix(d1, d2, use_mxu=False)
     torch.cuda.synchronize()
@@ -309,3 +324,20 @@ def test_hamming_popc_kernel_equals_plain(cuda, shape1, shape2):
     assert torch.equal(k, hamming.hamming_matrix_mxu(d1, d2))
     assert int(k[..., 0, 0].max()) == 0
     assert k.numel() == 1 or int(k.max()) > 100
+    if n1 > 5 and n2 > 1:
+        assert int(k[..., 5, 1].min()) == 256
+
+
+def test_hamming_popc_kernel_unaligned_words(cuda):
+    """Descriptors whose data starts 4 bytes past an 8-byte boundary (the
+    kernel reads word pairs; the wrapper copies such a tensor)."""
+    from stvo_pl_tpu_torch.ops import hamming
+    g = torch.Generator(device=cuda).manual_seed(5)
+    flat = torch.randint(-2 ** 31, 2 ** 31 - 1, (70 * 8 + 1,), generator=g,
+                         device=cuda, dtype=torch.int32)
+    d1 = flat[1:].view(70, 8)
+    d2 = flat[:-1].view(70, 8)
+    assert d1.is_contiguous() and d1.data_ptr() % 8 == 4
+    k = hamming.hamming_matrix_popc(d1, d2)
+    torch.cuda.synchronize()
+    assert torch.equal(k, hamming.hamming_matrix_xla(d1, d2))

@@ -1,9 +1,9 @@
 """Device times of the port's FAST pack (B1), patch gather (B2),
-all-direction run pack (B3) and one-direction run pack (B4) kernels at the
-main path's shapes, with what the work of each depends on.
+all-direction run pack (B3), one-direction run pack (B4) and Hamming (B5)
+kernels at the main path's shapes, with what the work of each depends on.
 
     python3 tools/time_torch_kernels.py [--tree DIR] [--tag NAME]
-        [--kernels b1,b2,b3,b4]
+        [--kernels b1,b2,b3,b4,b5]
 
 `--tree` names the directory whose `stvo_pl_tpu_torch` is imported (the
 default is this checkout), so one call can time two trees in turns, e.g.
@@ -23,7 +23,16 @@ kernels comes from torch.profiler.  Also reported: the share of pixels
 with a positive FAST response per level; B2's bound per level and
 `torch.gather` on precomputed indices; per B3 and B4 direction the share
 of set bits, run pixels, run starts and the hops a walk from every start
-would take (sum of min(run, 256)).
+would take (sum of min(run, 256)).  B5 at the popcount VO step's point
+and line shapes and the binary matcher's (seeded random words with
+distance-0 pairs), each held `torch.equal` to the plain version, beside
+its byte bound, the bf16 product `hamming_matrix_mxu`, PyTorch's fill of
+an output of the same size (the store alone), B5 followed by the VO
+step's consumer of its output (`nnr_mutual_match` under a random 30%
+candidate mask; points and lines) and the POPC issue floor of
+XOR + popcount (8 POPCs per pair at 16 per clock per SM, at the SM clock
+`nvidia-smi` reads while B5 runs); with the SASS instruction counts of
+the tree's Hamming kernel (`cuobjdump -sass`).
 Prints one JSON object and writes it to chiprun_out/time_kernels_<tag>.json.
 """
 
@@ -33,8 +42,11 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -46,6 +58,51 @@ from chip_smoke import (bound_ms, covered_pixels,  # noqa: E402
 
 BATCH = 8
 N_FRAMES = 26
+POPC_PER_CLOCK_SM = 16      # CUDA's throughput table, compute 7.x-9.0
+XOR_POPC_PER_PAIR = 8
+
+
+def sass_counts(lib: str, match: str) -> dict:
+    """Per kernel of `lib` whose name contains `match`: its SASS
+    instruction count, by opcode (the first dot-separated part), and the
+    full forms of its MMA instructions."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            cur = out.setdefault(name, {"ops": {}, "mma": []}) \
+                if match in name else None
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if cur is None or not m:
+            continue
+        op = m.group(1).split(".")[0]
+        cur["ops"][op] = cur["ops"].get(op, 0) + 1
+        if "MMA" in op and m.group(1) not in cur["mma"]:
+            cur["mma"].append(m.group(1))
+    return {name: dict(total=sum(c["ops"].values()), mma_forms=c["mma"],
+                       **dict(sorted(c["ops"].items())))
+            for name, c in out.items()}
+
+
+def sm_clock_mhz(fn, seconds: float = 2.0) -> list[float]:
+    """SM clocks that nvidia-smi reads every 100 ms while fn runs back to
+    back on the card."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+    smi.terminate()
+    text = smi.communicate()[0]
+    torch.cuda.synchronize()
+    return [float(x) for x in text.split() if x.replace(".", "").isdigit()]
 
 
 def run_pixels(sh, a, dx, dy):
@@ -64,7 +121,8 @@ def main() -> None:
     ap.add_argument("--tree", default=os.path.join(HERE, ".."))
     ap.add_argument("--tag", default="change")
     ap.add_argument("--kernels", default="b1,b2,b3,b4",
-                    help="comma-separated subset of b1, b2, b3, b4 to time")
+                    help="comma-separated subset of b1, b2, b3, b4, b5 to "
+                         "time")
     args = ap.parse_args()
     which = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -75,7 +133,8 @@ def main() -> None:
     from stvo_pl_tpu_torch.models import frame as frame_mod
     from stvo_pl_tpu_torch.ops import camera as cam_ops
     from stvo_pl_tpu_torch.ops import fast as fast_ops
-    from stvo_pl_tpu_torch.ops import fast_kernel, lsd, lsd_kernel, orb
+    from stvo_pl_tpu_torch.ops import fast_kernel, hamming, lsd, lsd_kernel
+    from stvo_pl_tpu_torch.ops import matching, orb
     from stvo_pl_tpu_torch.ops import patches
     from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
     from stvo_pl_tpu_torch.utils import synthetic
@@ -84,20 +143,10 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     dev = torch.device("cuda")
-    build.build_all()
+    lib = str(build.build_all() / build.LIB)
     cam = cam_ops.StereoCamera(fx=718.856, fy=718.856, cx=613.0, cy=185.0,
                                b=0.5372, width=1226, height=370)
     cfg = VOConfig()
-    poses = synthetic.smooth_trajectory(N_FRAMES, speed=0.8, device=dev)
-    L, R = [], []
-    for b in range(BATCH):
-        gen = torch.Generator(device=dev).manual_seed(1000 + b)
-        scene = synthetic.make_scene(gen, n_points=1400, n_lines=64,
-                                     extent=(40.0, 15.0, 90.0), z_near=5.0)
-        left, right = synthetic.render_sequence(scene, poses[:1], cam)
-        L.append(left[0])
-        R.append(right[0])
-    first = torch.cat([torch.stack(L), torch.stack(R)]).contiguous()
     out = {"tree": os.path.abspath(args.tree), "tag": args.tag, "card": smi,
            "ptxas": build.ptxas_report}
 
@@ -105,8 +154,20 @@ def main() -> None:
     rho = cfg.lsd_quant / math.sin(tol)
     edge = cfg.orb_edge_th
 
-    levels = [x.contiguous() for x in pyramid_levels(
-        first, cfg.orb_nlevels, cfg.orb_scale_factor, blur_sigma=0.6)]
+    if which & {"b1", "b2", "b3", "b4"}:
+        poses = synthetic.smooth_trajectory(N_FRAMES, speed=0.8, device=dev)
+        L, R = [], []
+        for b in range(BATCH):
+            gen = torch.Generator(device=dev).manual_seed(1000 + b)
+            scene = synthetic.make_scene(gen, n_points=1400, n_lines=64,
+                                         extent=(40.0, 15.0, 90.0),
+                                         z_near=5.0)
+            left, right = synthetic.render_sequence(scene, poses[:1], cam)
+            L.append(left[0])
+            R.append(right[0])
+        first = torch.cat([torch.stack(L), torch.stack(R)]).contiguous()
+        levels = [x.contiguous() for x in pyramid_levels(
+            first, cfg.orb_nlevels, cfg.orb_scale_factor, blur_sigma=0.6)]
 
     # ---- B1 per pyramid level ----------------------------------------------
     if "b1" in which:
@@ -225,6 +286,61 @@ def main() -> None:
         out["B4"] = dict(shape=[N, H, W], out_shape=[N, Hp, Wp],
                          step_ms=sum(r["ms"] for r in b4),
                          step_split_us=split, per_direction=b4)
+
+    # ---- B5 at the popcount step's and the matcher's shapes ---------------
+    if "b5" in which:
+        g = torch.Generator(device=dev).manual_seed(7)
+
+        def words(*shape):
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                                 device=dev, dtype=torch.int32)
+
+        K, Kl = cfg.point_capacity, cfg.line_capacity
+        shapes = {"points": (words(BATCH, K, 8), words(BATCH, K, 8)),
+                  "lines": (words(BATCH, Kl, 8), words(BATCH, Kl, 8)),
+                  "matcher": (words(BATCH * Kl, 8), words(64 * Kl, 8))}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        d1, d2 = shapes["points"]
+        clocks = sm_clock_mhz(lambda: hamming.hamming_matrix_popc(d1, d2))
+        clock = sorted(clocks)[len(clocks) // 2] if clocks else float("nan")
+        rows = {}
+        for name, (d1, d2) in shapes.items():
+            d2[..., :5, :] = d1[..., :5, :]           # pairs at distance 0
+            k = hamming.hamming_matrix_popc(d1, d2)
+            equal = torch.equal(k, hamming.hamming_matrix_xla(d1, d2))
+            pairs = k.numel()
+            buf = torch.empty_like(k)
+            bnd, _ = bound_ms((d1.numel() + d2.numel() + pairs) * 4, 0)
+            reps = 10 if name == "matcher" else 50
+            if name != "matcher":
+                # B5 then its consumer on the VO path, which reads the
+                # output at once
+                cand = torch.rand(k.shape, generator=g, device=dev) < 0.3
+                then_match = lambda: matching.nnr_mutual_match(
+                    hamming.hamming_matrix_popc(d1, d2), cand, 0.75)
+                rows[name] = dict(then_match_us=time_ms(then_match, reps)
+                                  * 1e3)
+            rows[name] = dict(rows.get(name, {}),
+                shapes=[list(d1.shape), list(d2.shape)], equal=equal,
+                us=time_ms(lambda: hamming.hamming_matrix_popc(d1, d2),
+                           reps) * 1e3,
+                bound_us=bnd * 1e3,
+                library_us=time_ms(lambda: hamming.hamming_matrix_mxu(d1, d2),
+                                   reps) * 1e3,
+                fill_us=time_ms(lambda: buf.fill_(0), reps) * 1e3,
+                popc_floor_us=pairs * XOR_POPC_PER_PAIR / (
+                    sms * POPC_PER_CLOCK_SM * clock * 1e6) * 1e6)
+            del k, buf
+        per_step = lambda key: 2 * (rows["points"][key] + rows["lines"][key])
+        out["B5"] = dict(
+            step_then_match_ms=per_step("then_match_us") / 1e3,
+            sm_clock_mhz=clock, sm_clock_samples=clocks, sms=sms,
+            shapes=rows, step_ms=per_step("us") / 1e3,
+            step_bound_ms=per_step("bound_us") / 1e3,
+            step_library_ms=per_step("library_us") / 1e3,
+            step_fill_ms=per_step("fill_us") / 1e3,
+            step_popc_floor_ms=per_step("popc_floor_us") / 1e3,
+            sass=sass_counts(lib, "hamming"))
 
     os.makedirs("chiprun_out", exist_ok=True)
     with open(f"chiprun_out/time_kernels_{args.tag}.json", "w") as f:
