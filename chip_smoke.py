@@ -21,9 +21,18 @@ also drives the points-only step, the dense single-octave line detector
 (lsd_octaves=1) with either run candidate generator, the default step with
 popcount Hamming distances (hamming_use_mxu=False), the binary descriptor
 matcher over an index of the lanes' line descriptors, and the RGB-D step
-on one lane.  Every phase prints one JSON line; any failed check exits
-non-zero.  The last three lines are the kernel table, the card's name and
-power limit, and the result line.
+on one lane.  Then it writes 40 frames of the textured street canyon
+(utils/world.py) at the KITTI size to disk under build/ and runs the
+dataset CLI over them with windowed bundle adjustment (cli_ba: VOConfig(),
+windows of 4 keyframes, every 3rd frame promoted; then B1-B3 against
+their plain versions on the street's first pair, and the CLI's first 3
+frames on the CPU), and refines one
+window of the first 10 frames with the bf16 product's and with B5's
+Hamming distances (ba_popcount: equal problems and poses, 12 B5 launches,
+the same window on the CPU).  Every phase prints one JSON line; any
+failed check exits non-zero.  The last three lines are the kernel table
+(with each kernel's launches per phase), the card's name and power
+limit, and the result line.
 
 Needs one CUDA device; exits non-zero without one.  Imports nothing of
 JAX.
@@ -69,6 +78,18 @@ HAMMING_OPS_PER_PAIR = 24
 # B5's edge words, each in rows of its own: 0, 0xFFFFFFFF, 0x80000000 and
 # 0x7FFFFFFF
 HAMMING_EDGE_WORDS = (0, -1, -2 ** 31, 2 ** 31 - 1)
+
+# the application phases: the textured street (tools/export_street_torch.py,
+# 0.8 m/frame); windows of 4 keyframes, every 3rd frame promoted;
+# GPU-vs-CPU tolerance of one window's refined poses (m and rotation
+# entries)
+CLI_FRAMES = 40
+BA_FRAMES = 10
+BA_WINDOW = 4
+BA_KF_EVERY = 3
+GPU_CPU_BA_TOL = 1e-3
+CLI_PARITY_FRAMES = 3       # the CLI's first frames again on the CPU
+GPU_CPU_CLI_TOL = 0.01      # m, as the batched step's cpu_parity
 
 # device-side sleep ahead of each timed batch (~20 ms at the H100's clock)
 SLEEP_CYCLES = 40_000_000
@@ -201,6 +222,261 @@ def covered_pixels(y0: torch.Tensor, x0: torch.Tensor, H: int, W: int,
     cover = torch.nn.functional.max_pool2d(
         torch.nn.functional.pad(corners, (P - 1, 0, P - 1, 0)), P, stride=1)
     return int(cover.sum())
+
+
+def street_kernels_equal(root: str, cfg) -> dict:
+    """B1, B2 and B3 against their plain versions (torch.equal) on the
+    inputs the CLI's step gives them for the street's first stereo pair:
+    [2, H, W] per pyramid level, one lane's two eyes, built as the main
+    path's kernel checks build theirs."""
+    from stvo_pl_tpu_torch.models import frame as frame_mod
+    from stvo_pl_tpu_torch.ops import fast as fast_ops
+    from stvo_pl_tpu_torch.ops import fast_kernel, lsd, lsd_kernel, orb
+    from stvo_pl_tpu_torch.ops import patches
+    from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
+    from stvo_pl_tpu_torch.utils.dataset import ImageSequence
+
+    dev = torch.device("cuda")
+    img_l, img_r = ImageSequence(root, nmax=1, device=dev).frame(0)
+    pair = torch.stack([img_l, img_r]).to(dev).contiguous()
+    levels = pyramid_levels(pair, cfg.orb_nlevels, cfg.orb_scale_factor,
+                            blur_sigma=0.6)
+    budgets = frame_mod._per_level_budgets(cfg)
+    th = torch.full((2,), float(cfg.orb_fast_th), device=dev)
+    P = orb.PATCH
+    shapes = dict(fast_pack=[], extract_patches=[])
+    for lv, img in enumerate(levels):
+        img = img.contiguous()
+        k = fast_kernel.fast_pack(img, cfg.orb_edge_th)
+        p = fast_kernel.fast_pack_plain(img, cfg.orb_edge_th)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"cli_ba: B1 level {lv}: kernel != plain "
+                f"at {int((k != p).sum())} words")
+        shapes["fast_pack"].append(list(img.shape))
+        blur = gaussian_blur(img, 2.0, radius=3).contiguous()
+        uv, _, _ = fast_ops.detect_keypoints(img, th, budgets[lv],
+                                             edge=cfg.orb_edge_th)
+        N, H, W = blur.shape
+        x0 = torch.clamp(torch.round(uv[..., 0]).to(torch.int32)
+                         - orb.PATCH_R, 0, W - P).contiguous()
+        y0 = torch.clamp(torch.round(uv[..., 1]).to(torch.int32)
+                         - orb.PATCH_R, 0, H - P).contiguous()
+        k = patches.extract_patches(blur, y0, x0, P)
+        p = patches.extract_patches_plain(blur, y0, x0, P)
+        torch.cuda.synchronize()
+        require(torch.equal(k, p), f"cli_ba: B2 level {lv}: kernel != plain")
+        shapes["extract_patches"].append([N, H, W, y0.shape[1]])
+    n_dirs = frame_mod._oct_dirs(cfg)
+    steps = lsd.direction_steps(n_dirs)
+    tol = math.radians(cfg.lsd_ang_th)
+    cv = frame_mod.octave_canvas(pair, cfg)
+    bits = lsd.direction_bitmask(cv.ang, cv.mag, steps, tol,
+                                 cfg.lsd_quant / math.sin(tol)).contiguous()
+    k = lsd_kernel.run_pack_multi(bits, steps)
+    p = lsd_kernel.run_pack_multi_plain(bits, steps)
+    torch.cuda.synchronize()
+    require(torch.equal(k, p), "cli_ba: B3: kernel != plain")
+    shapes["run_pack_multi"] = list(bits.shape)
+    return shapes
+
+
+def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
+                 smi: str) -> dict:
+    """The dataset CLI with windowed BA over the street dataset on the
+    card: checks the trajectories and the kernels' counts, then B1-B3
+    against their plain versions on the street's first pair and the first
+    CLI_PARITY_FRAMES frames of the CLI on the CPU; returns the phase's
+    numbers."""
+    import contextlib
+    import io
+    import os
+
+    from stvo_pl_tpu_torch import cli
+    from stvo_pl_tpu_torch.utils import metrics
+
+    n = len(gt)
+    traj = os.path.join(root, "traj.txt")
+    argv = [root, "--ba-window", str(BA_WINDOW), "--ba-kf-every",
+            str(BA_KF_EVERY), "--gt", os.path.join(root, "gt.txt"), "-t",
+            traj, "--quiet"]
+    for w in wrappers.values():
+        w.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run = cli.run(argv)
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    ba = run.backend
+    require(np.isfinite(run.poses).all(), "cli_ba: non-finite poses")
+    require(run.poses_refined is not None and len(ba.events) >= 2,
+            f"cli_ba: {len(ba.events)} windows refined, expected >= 2")
+    raw = run.poses.astype(np.float64)
+    ate = metrics.ate_rmse(raw, gt)
+    ate_u = metrics.ate_rmse(raw, gt, align=False)
+    ref_u = metrics.ate_rmse(run.poses_refined, gt, align=False)
+    ref_a = metrics.ate_rmse(run.poses_refined, gt)
+    written = metrics.read_tum(traj + ".refined")
+    require(np.abs(written - run.poses_refined).max() < 1e-5,
+            "cli_ba: the refined trajectory file differs from the run's")
+    require(ate < 0.1, f"cli_ba: aligned raw ATE {ate} m")
+    require(ref_u <= 1.05 * ate_u, f"cli_ba: refined unaligned ATE {ref_u} "
+            f"m against raw {ate_u} m")
+    # the kernels at the CLI's shapes, on its inputs
+    kernel_shapes = street_kernels_equal(root, cfg)
+    # the first frames of the same CLI on the CPU (the plain versions)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu_poses = cli.main([root, "-n", str(CLI_PARITY_FRAMES),
+                              "--device", "cpu", "--quiet"])
+    cpu_s = time.perf_counter() - t0
+    cpu_dt = float(np.abs(cpu_poses[:, :3, 3]
+                          - run.poses[:CLI_PARITY_FRAMES, :3, 3]).max())
+    require(cpu_dt <= GPU_CPU_CLI_TOL, f"cli_ba: the CLI on the CPU differs "
+            f"from the card's by {cpu_dt} m in {CLI_PARITY_FRAMES} frames")
+    # what the CLI printed per frame: the interval between frames done,
+    # which holds the BA windows refined in it
+    ms = np.array([s["ms"] for s in run.stats][2:])
+    t_ba = ba.refine_times
+    return dict(frames=n, height=cam.height, width=cam.width,
+                seconds=seconds, cli_ms_per_frame=float(ms.mean()),
+                vo_ms_per_frame=float((ms.sum() - 1e3 * sum(t_ba))
+                                      / len(ms)),
+                ba_first_s=t_ba[0],
+                ba_steady_s=float(np.median(t_ba[1:])) if len(t_ba) > 1
+                else None, ba_s=t_ba, windows_refined=len(ba.events),
+                windows_skipped=ba.n_skipped,
+                windows_line_rejected=ba.n_lines_rejected,
+                keyframe_windows=[e[0] for e in ba.events],
+                ate_raw_aligned_m=ate, ate_raw_unaligned_m=ate_u,
+                ate_refined_unaligned_m=ref_u, ate_refined_aligned_m=ref_a,
+                launches=launches, kernels_equal_at=kernel_shapes,
+                cpu_frames=CLI_PARITY_FRAMES, cpu_seconds=cpu_s,
+                gpu_cpu_max_translation_diff_m=cpu_dt,
+                cli_lines=[l for l in buf.getvalue().splitlines()
+                           if l.startswith("[stvo]")], card=smi)
+
+
+def first_window(root: str, cam, cfg):
+    """VO over the first BA_FRAMES frames of the dataset at `root` on the
+    card, fed to a WindowedBA(window=BA_WINDOW, force_kf_every =
+    BA_KF_EVERY) as the CLI feeds it; its first window, stacked.  Returns
+    (window, keyframe indices)."""
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.models.backend import WindowedBA
+    from stvo_pl_tpu_torch.utils.dataset import ImageSequence
+
+    class Capture(WindowedBA):
+        """Hands its first full window back unrefined."""
+
+        def _refine(self):
+            return [i for i, *_ in self._ring], self.stack_window()
+
+    dev = torch.device("cuda")
+    seq = ImageSequence(root, nmax=BA_FRAMES, device=dev)
+    state = frontend.init_state(cfg, device=dev)
+    ba = Capture(cam, cfg, window=BA_WINDOW, force_kf_every=BA_KF_EVERY,
+                 device=dev)
+    for i, (img_l, img_r) in enumerate(seq):
+        state, t = frontend.vo_step(state, img_l.to(dev), img_r.to(dev), cam,
+                                    cfg)
+        got = ba.observe(i, t.Tfw, t.is_kf, state.prev_points,
+                         state.prev_lines)
+        if got is not None:
+            kf_frames, win = got
+            return win, kf_frames
+    fail(f"ba_popcount: fewer than {BA_WINDOW} keyframes in {BA_FRAMES} "
+         "frames")
+
+
+def ba_popcount_phase(root: str, cam, cfg, smi: str) -> dict:
+    """One window of K = 4 keyframes from the first BA_FRAMES frames,
+    refined with the bf16 product's Hamming distances and with B5's:
+    equal problems and poses, 12 B5 launches, B5 against its plain
+    version at the window's shapes, and the window on the CPU."""
+    from stvo_pl_tpu_torch.ops import hamming
+    from stvo_pl_tpu_torch.parallel import window
+
+    sync = torch.cuda.synchronize
+    win, kf_frames = first_window(root, cam, cfg)
+    routes = {}
+    for name, use_mxu in (("bf16_product", True), ("popcount_kernel", False)):
+        c = cfg.replace(hamming_use_mxu=use_mxu)
+        prob = window.build_problem_tracks(win, cam, c)
+        hamming.hamming_matrix_popc.launches = 0
+        out = window.refine_window_auto(win, cam, c, n_iters=8)
+        sync()
+        routes[name] = dict(cfg=c, prob=prob, out=out, ms_all=[],
+                            launches=hamming.hamming_matrix_popc.launches)
+    for _ in range(3):                  # the two routes in turns
+        for r in routes.values():
+            sync()
+            t0 = time.perf_counter()
+            window.refine_window_auto(win, cam, r["cfg"], n_iters=8)
+            sync()
+            r["ms_all"].append((time.perf_counter() - t0) * 1e3)
+    for r in routes.values():
+        r["ms"] = min(r["ms_all"])
+    a, b = routes["bf16_product"], routes["popcount_kernel"]
+    n_pairs = BA_WINDOW * (BA_WINDOW - 1) // 2
+    require(a["launches"] == 0 and b["launches"] == 2 * n_pairs,
+            f"ba_popcount: B5 launched {a['launches']} / {b['launches']} "
+            f"times, expected 0 / {2 * n_pairs}")
+    for f in a["prob"]._fields:
+        require(torch.equal(getattr(a["prob"], f), getattr(b["prob"], f)),
+                f"ba_popcount: the problems differ in {f}")
+    for x, y in zip(a["out"], b["out"]):
+        require(torch.equal(x, y), "ba_popcount: the refinements differ")
+    # B5 at the window's unbatched shapes, against its plain version and
+    # the bf16 product
+    b5 = {}
+    for kind, fs in (("points", win.points), ("lines", win.lines)):
+        d1, d2 = fs.desc[0].contiguous(), fs.desc[1].contiguous()
+        k = hamming.hamming_matrix_popc(d1, d2)
+        p = hamming.hamming_matrix_xla(d1, d2)
+        sync()
+        require(torch.equal(k, p), f"ba_popcount: B5 != plain at {kind}")
+        require(torch.equal(k, hamming.hamming_matrix_mxu(d1, d2)),
+                f"ba_popcount: B5 != bf16 product at {kind}")
+        bnd, by = bound_ms((d1.numel() + d2.numel() + k.numel()) * 4,
+                           k.numel() * HAMMING_OPS_PER_PAIR)
+        b5[kind] = dict(
+            shapes=[list(d1.shape), list(d2.shape)],
+            ms=time_ms(lambda: hamming.hamming_matrix_popc(d1, d2), 50),
+            plain_ms=time_ms(lambda: hamming.hamming_matrix_xla(d1, d2), 10),
+            library_ms=time_ms(lambda: hamming.hamming_matrix_mxu(d1, d2),
+                               50),
+            bound_ms=bnd, bound_by=by)
+    per_window = {key: n_pairs * (b5["points"][key] + b5["lines"][key])
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    # the same window on the CPU (plain versions)
+    cpu = lambda fs: type(fs)(*[x.cpu() for x in fs])
+    cwin = window.KeyframeWindow(Tfw=win.Tfw.cpu(), points=cpu(win.points),
+                                 lines=cpu(win.lines))
+    t0 = time.perf_counter()
+    cT, _, _, c_used = window.refine_window_auto(cwin, cam, cfg, n_iters=8)
+    cpu_s = time.perf_counter() - t0
+    gT, _, _, g_used = a["out"]
+    gT = gT.cpu()
+    dt = float((cT[:, :3, 3] - gT[:, :3, 3]).abs().max())
+    dr = float((cT[:, :3, :3] - gT[:, :3, :3]).abs().max())
+    require(bool(c_used) == bool(g_used), "ba_popcount: GPU and CPU differ "
+            "in used_lines")
+    require(dt <= GPU_CPU_BA_TOL and dr <= GPU_CPU_BA_TOL,
+            f"ba_popcount: GPU and CPU poses differ by {dt} m / {dr}")
+    prob = a["prob"]
+    return dict(frames=BA_FRAMES, keyframes=kf_frames, K=BA_WINDOW,
+                landmark_slots=int(prob.mask.shape[0]),
+                live_point_tracks=int(prob.mask.any(dim=1).sum()),
+                live_line_tracks=int(prob.mask_l.any(dim=1).sum()),
+                b5_launches={k: v["launches"] for k, v in routes.items()},
+                problems_equal=True, poses_equal=True,
+                used_lines=bool(g_used),
+                ms_per_window={k: v["ms"] for k, v in routes.items()},
+                ms_per_window_runs={k: v["ms_all"] for k, v in routes.items()},
+                b5_ba_shapes=b5, b5_per_window=per_window,
+                gpu_cpu_max_translation_diff_m=dt,
+                gpu_cpu_max_rotation_diff=dr, cpu_window_s=cpu_s, card=smi)
 
 
 def main() -> None:
@@ -856,11 +1132,11 @@ def main() -> None:
     torch.cuda.synchronize()
     rgbd_ate = metrics.ate_rmse(torch.stack(traj).double().cpu().numpy(),
                                 poses[:nf].double().cpu().numpy())
+    rgbd_launches = {k: w.launches for k, w in wrappers.items()}
     emit("rgbd", frames=nf, ate_m=rgbd_ate,
          depth_share=float((depth0 > 0).float().mean()),
          inliers_pt_per_frame=rgbd_pt / (nf - 1),
-         inliers_ls_per_frame=rgbd_ls / (nf - 1),
-         launches={k: w.launches for k, w in wrappers.items()})
+         inliers_ls_per_frame=rgbd_ls / (nf - 1), launches=rgbd_launches)
     require(np.isfinite(rgbd_ate) and rgbd_ate < 0.1,
             f"rgbd: ATE {rgbd_ate} m")
     require(fast_kernel.fast_pack.launches == nf * cfg.orb_nlevels
@@ -893,6 +1169,31 @@ def main() -> None:
     require(dmax_dense < 0.01, f"dense per-direction: GPU and CPU poses "
             f"differ by {dmax_dense} m")
 
+    # ---- 7b. the dataset CLI with windowed BA, textured street ---------
+    # VOConfig() on the KITTI camera over 40 frames written to disk
+    import os
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tools"))
+    from export_street_torch import write_street_dataset
+    street = os.path.join(here, "build", "chip_smoke_street")
+    t0 = time.perf_counter()
+    gt_street = write_street_dataset(street, cam, CLI_FRAMES,
+                                     photos="bundled")
+    render_s = time.perf_counter() - t0
+    r_cli = cli_ba_phase(street, gt_street, cam, cfg, wrappers, smi)
+    cli_expected = {"fast_pack": CLI_FRAMES * cfg.orb_nlevels,
+                    "extract_patches": CLI_FRAMES * cfg.orb_nlevels,
+                    "run_pack_multi": CLI_FRAMES}
+    for k in wrappers:
+        require(r_cli["launches"][k] == cli_expected.get(k, 0),
+                f"cli_ba: {k} launched {r_cli['launches'][k]} times in "
+                f"{CLI_FRAMES} frames, expected {cli_expected.get(k, 0)}")
+    emit("cli_ba", render_seconds=render_s, **r_cli)
+
+    # ---- 7c. one BA window, bf16 product against B5 --------------------
+    r_bap = ba_popcount_phase(street, cam, cfg, smi)
+    emit("ba_popcount", **r_bap)
+
     # ---- 8. B4 split into its passes, by torch.profiler ----------------
     # last: after a profiler session in this process the VO phases' steps
     # read slower on the host clock (PERF.md §5)
@@ -905,13 +1206,25 @@ def main() -> None:
     emit("B4_pass_split", step_split_us=b4_split, dirs=b4_dir_split)
     del masks
 
-    # each kernel's launches come from the phase whose path runs it
+    # each kernel's launches come from the phase whose path runs it;
+    # "phases" lists its launches in every phase that ran it
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "phases")
+    phase_launches = {
+        "vo_points_only": r_pts["launches"], "vo": r_main["launches"],
+        "vo_dense_all_direction": r_dense["all_direction"]["launches"],
+        "vo_dense_per_direction": r_dense["per_direction"]["launches"],
+        "vo_popcount": r_popc["launches"], "rgbd": rgbd_launches,
+        "cli_ba": r_cli["launches"],
+        "ba_popcount": {"hamming_matrix_popc":
+                        r_bap["b5_launches"]["popcount_kernel"]}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
               (b4, r_dense["per_direction"]), (b5, r_popc)]
     table = [{k: row[k] for k in keys} for row in
-             (dict(r, launches=run["launches"][r["name"]])
+             (dict(r, launches=run["launches"][r["name"]],
+                   phases={ph: n[r["name"]] for ph, n in
+                           phase_launches.items()
+                           if n.get(r["name"], 0) > 0})
               for r, run in ran_in)]
     require(all(row["launches"] > 0 for row in table),
             f"a kernel was launched no time on its path: {table}")

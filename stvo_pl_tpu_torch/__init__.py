@@ -7,9 +7,15 @@ patches gathered by the CUDA kernel `csrc/patches.cu`, the multi-octave
 canvas line detector around the all-direction run kernel
 (`csrc/lsd_run_pack.cu`) with LBD descriptors, stereo and frame-to-frame
 matching of both modalities, robust Gauss-Newton and the keyframe
-decision.  Entry points run
-on the GPU unless the caller passes device="cpu".  The package never
-imports JAX or the JAX package.
+decision.  Around the step it carries the application: the dataset CLI
+(`cli.py`: images on disk -> `utils/dataset.ImageSequence` -> the VO step
+per frame -> `models/backend.WindowedBA`, the windowed bundle adjustment
+of `parallel/window.py` and `parallel/ba.py` over keyframe windows ->
+refined trajectory, TUM / KITTI files and ATE against ground truth), with
+its plots, HTML scene and the textured street world for test data.
+Entry points run on the GPU unless the caller passes device="cpu"
+(`--device cpu` for the CLI).  The package never imports JAX or the JAX
+package.
 """
 
 from stvo_pl_tpu_torch.config import VOConfig, load_config

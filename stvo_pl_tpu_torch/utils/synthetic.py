@@ -3,9 +3,10 @@ of stvo_pl_tpu/utils/synthetic.py): a random 3-D world of textured point
 landmarks and bright line segments rendered into rectified stereo pairs,
 all frames of a sequence at once, on the device of the scene's tensors.
 
-`render_depth` gives the left eye's metric depth maps of the same
-sequence, for the RGB-D front end (an addition of the port: the JAX
-package's renderer has no depth output).
+`street_trajectory` drives the textured street canyon of utils/world.py
+and `render_stereo` renders one pose.  `render_depth` gives the left eye's
+metric depth maps of the same sequence, for the RGB-D front end (an
+addition of the port: the JAX package's renderer has no depth output).
 
 `make_scene` draws from a `torch.Generator`, so the same seed gives other
 scenes than the JAX package's; to render the JAX package's scene, build a
@@ -83,6 +84,32 @@ def smooth_trajectory(n_frames: int, speed=0.6, yaw_rate=0.004,
         wx, wy, wz = xi[3:]
         W[:3, :3] = np.array([[0, -wz, wy], [wz, 0, -wx], [-wy, wx, 0]])
         T = T @ expm(W)
+    return torch.tensor(np.stack(poses), dtype=dtype, device=device)
+
+
+def street_trajectory(n_frames: int, speed=0.8, sway=0.3, bob=0.06,
+                      yaw_amp=0.008, pitch_amp=0.004, device="cpu",
+                      dtype=torch.float32) -> torch.Tensor:
+    """[T, 4, 4] camera-to-world poses for a street-canyon world
+    (utils/world.py): straight forward motion with BOUNDED sinusoidal
+    sway / bob / yaw / pitch, so the camera stays inside the canyon for any
+    horizon (smooth_trajectory's integrated increments random-walk out of
+    it on long runs).  Computed in float64 on the host."""
+    poses = []
+    for i in range(n_frames):
+        x = sway * np.sin(2 * np.pi * i / 140.0)
+        y = -bob * np.sin(2 * np.pi * i / 90.0)
+        z = speed * i
+        yaw = yaw_amp * np.sin(2 * np.pi * i / 200.0)
+        pitch = pitch_amp * np.sin(2 * np.pi * i / 170.0)
+        cy_, sy_ = np.cos(yaw), np.sin(yaw)
+        cp, sp = np.cos(pitch), np.sin(pitch)
+        Ry = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
+        Rx = np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]])
+        T = np.eye(4)
+        T[:3, :3] = Ry @ Rx
+        T[:3, 3] = (x, y, z)
+        poses.append(T)
     return torch.tensor(np.stack(poses), dtype=dtype, device=device)
 
 
@@ -186,6 +213,14 @@ def render_sequence(scene: Scene, poses: torch.Tensor,
         return torch.clamp(img, 0.0, 255.0)
 
     return eye(0.0), eye(cam.b)
+
+
+def render_stereo(scene: Scene, T_wc: torch.Tensor,
+                  cam: cam_ops.StereoCamera):
+    """The (left [H, W], right [H, W]) pair seen from one camera-to-world
+    pose T_wc [4, 4]."""
+    left, right = render_sequence(scene, T_wc[None], cam)
+    return left[0], right[0]
 
 
 def render_depth(scene: Scene, poses: torch.Tensor,

@@ -80,3 +80,44 @@ def shared_fraction(sp_a, ep_a, valid_a, sp_b, ep_b, valid_b,
     d = np.abs(a[:, None, :] - b[None, :, :]).max(axis=-1)
     hit = (d.min(axis=1) <= tol).sum()
     return hit / max(len(a), len(b))
+
+
+def port_vo_frames(n_frames: int, cfg_kwargs: dict, seed: int = 0,
+                   img_noise: float = 0.0, n_lines: int = 24):
+    """The port's VO on the CPU over the rendered sequence: per frame
+    (Tfw [4,4] float32, is_kf, PointSet, LineSet) with numpy leaves
+    (descriptors as uint32), and the true poses."""
+    import torch
+
+    from stvo_pl_tpu_torch import convert
+    from stvo_pl_tpu_torch.config import VOConfig
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.ops import camera as tcam
+
+    L, R, poses = rendered_sequence(n_frames, seed=seed, n_lines=n_lines)
+    if img_noise > 0:
+        rng = np.random.default_rng(seed + 1)
+        L = (L + img_noise * rng.normal(size=L.shape)).astype(np.float32)
+        R = (R + img_noise * rng.normal(size=R.shape)).astype(np.float32)
+    cfg = VOConfig(**cfg_kwargs)
+    cam = tcam.StereoCamera(**CAM_ARGS)
+    state = frontend.init_state(cfg, device="cpu")
+    frames = []
+    for i in range(n_frames):
+        state, t = frontend.vo_step(state, torch.from_numpy(L[i]),
+                                    torch.from_numpy(R[i]), cam, cfg)
+        frames.append((t.Tfw.numpy().copy(), bool(t.is_kf),
+                       convert._tuple_to_numpy(state.prev_points),
+                       convert._tuple_to_numpy(state.prev_lines)))
+    return frames, poses
+
+
+def jax_tree(tree):
+    """A NamedTuple (nested, None leaves allowed) of numpy arrays -> the
+    same structure of jax arrays."""
+    import jax.numpy as jnp
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*[jax_tree(x) for x in tree])
+    return jnp.asarray(tree)

@@ -102,3 +102,40 @@ def test_lines_and_bad_inputs_are_refused():
         patches.extract_patches(img, y0[:1], y0[:1])
     np.testing.assert_array_equal(
         patches.extract_patches(img, y0, y0, 5).shape, (2, 4, 5, 5))
+
+
+def test_application_modules_are_checked():
+    """The windowed BA, the back end, the dataset CLI and its utilities
+    are among the modules imported with JAX blocked and scanned above."""
+    for m in ("stvo_pl_tpu_torch.parallel.ba",
+              "stvo_pl_tpu_torch.parallel.window",
+              "stvo_pl_tpu_torch.models.backend", "stvo_pl_tpu_torch.cli",
+              "stvo_pl_tpu_torch.utils.dataset",
+              "stvo_pl_tpu_torch.utils.world",
+              "stvo_pl_tpu_torch.utils.visualization",
+              "stvo_pl_tpu_torch.utils.scene_html"):
+        assert m in MODULES, m
+
+
+def test_application_entry_points_need_gpu_unless_cpu_requested(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from stvo_pl_tpu_torch import cli, convert
+    from stvo_pl_tpu_torch.models.backend import WindowedBA
+    from stvo_pl_tpu_torch.ops import camera as tcam
+    from stvo_pl_tpu_torch.utils.dataset import ImageSequence
+    cam = tcam.StereoCamera(160.0, 160.0, 60.0, 40.0, 0.3, 120, 80)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WindowedBA(cam, VOConfig())
+    assert WindowedBA(cam, VOConfig(), device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ImageSequence(str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main([str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.problem_from_numpy(dict(X=np.zeros((2, 3), np.float32),
+                                        obs=np.zeros((2, 1, 3), np.float32),
+                                        mask=np.ones((2, 1), bool),
+                                        sigma2=np.ones(2, np.float32),
+                                        Xl=None, obs_l=None, mask_l=None,
+                                        sigma2_l=None))
