@@ -29,7 +29,14 @@ their plain versions on the street's first pair, and the CLI's first 3
 frames on the CPU), and refines one
 window of the first 10 frames with the bf16 product's and with B5's
 Hamming distances (ba_popcount: equal problems and poses, 12 B5 launches,
-the same window on the CPU).  Every phase prints one JSON line; any
+the same window on the CPU).  Over the first 6 frames of the 8 lanes it
+drives the EDLine detector (vo_edlines: use_edlines=True at edline_scale
+2 and 1, with detect_edlines on the card against the CPU and two RGB-D
+steps), and in an NCCL world of one (sharded) the sharded step against
+vo_step_batched, timed in turns, then make_sharded_ba and the sharded
+window refiner on the ba_popcount window against ba_solve and
+refine_window, and tp_match against the dense matcher, all
+`torch.equal`.  Every phase prints one JSON line; any
 failed check exits non-zero.  The last three lines are the kernel table
 (with each kernel's launches per phase), the card's name and power
 limit, and the result line.
@@ -222,6 +229,18 @@ def covered_pixels(y0: torch.Tensor, x0: torch.Tensor, H: int, W: int,
     cover = torch.nn.functional.max_pool2d(
         torch.nn.functional.pad(corners, (P - 1, 0, P - 1, 0)), P, stride=1)
     return int(cover.sum())
+
+
+def shared_fraction(a, b, tol: float = 0.5) -> float:
+    """Share of the valid segments of the larger of two LineSegments (one
+    image each, numpy leaves) that have a partner in the other with both
+    endpoints within `tol` px (tests/test_torch_helpers.py's rule)."""
+    pa = np.concatenate([a.sp, a.ep], axis=-1)[a.valid]
+    pb = np.concatenate([b.sp, b.ep], axis=-1)[b.valid]
+    if len(pa) == 0 or len(pb) == 0:
+        return float(len(pa) == len(pb))
+    d = np.abs(pa[:, None, :] - pb[None, :, :]).max(axis=-1)
+    return float((d.min(axis=1) <= tol).sum()) / max(len(pa), len(pb))
 
 
 def street_kernels_equal(root: str, cfg) -> dict:
@@ -477,6 +496,207 @@ def ba_popcount_phase(root: str, cam, cfg, smi: str) -> dict:
                 b5_ba_shapes=b5, b5_per_window=per_window,
                 gpu_cpu_max_translation_diff_m=dt,
                 gpu_cpu_max_rotation_diff=dr, cpu_window_s=cpu_s, card=smi)
+
+
+def edlines_phase(drive, check, seq_l, depth0, cam, wrappers: dict,
+                  smi: str):
+    """The VO step with use_edlines=True at edline_scale 2 (the quality
+    mode) and 1 through `drive` (2 + 4 frames of the 8 lanes), each gated
+    as the other VO phases with B3 never launched; detect_edlines on the
+    card against the CPU on lane 0's first left frame, with the CPU
+    test's tolerance; two RGB-D steps with EDLines on lane 0.  Returns
+    (per-scale results, the RGB-D steps' launches)."""
+    from stvo_pl_tpu_torch.config import VOConfig
+    from stvo_pl_tpu_torch.models import frame as frame_mod
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.ops import lsd
+
+    nf = POINTS_ONLY_FRAMES
+    dev = seq_l.device
+    r_ed = {}
+    for scale in (2, 1):
+        cfg_ed = VOConfig(use_edlines=True, edline_scale=scale)
+        _, r = drive(cfg_ed, nf, WARMUP_FRAMES)
+        name = f"vo_edlines scale {scale}"
+        check(name, r, {"fast_pack": nf * cfg_ed.orb_nlevels,
+                        "extract_patches": nf * cfg_ed.orb_nlevels})
+        require(min(r["inliers_ls_lanes"]) > 0, f"{name}: a lane tracked "
+                f"no line: {r['inliers_ls_lanes']}")
+        img = seq_l[0, :1].contiguous()
+        min_len = cfg_ed.min_line_length * min(cam.width, cam.height)
+        g, c = (lsd.LineSegments(*[t[0].cpu().numpy() for t in
+                                   frame_mod.detect_edlines_stereo(
+                                       x, min_len, cfg_ed)])
+                for x in (img, img.cpu()))
+        n_gpu, n_cpu = int(g.valid.sum()), int(c.valid.sum())
+        shared = shared_fraction(g, c)
+        require(abs(n_gpu - n_cpu) <= 1 and shared >= 0.9,
+                f"{name}: detect_edlines on the card finds {n_gpu} lines, "
+                f"on the CPU {n_cpu}, {shared:.3f} shared within 0.5 px")
+        r_ed[f"scale{scale}"] = dict(r, detect_lines_gpu=n_gpu,
+                                     detect_lines_cpu=n_cpu,
+                                     detect_shared_0p5px=shared)
+    # RGB-D with EDLines (full resolution, as its front end runs them)
+    cfg_rgbd = VOConfig(rgbd_max_depth=200.0, use_edlines=True)
+    for w in wrappers.values():
+        w.launches = 0
+    state = frontend.init_state(cfg_rgbd, device=dev)
+    for i in range(2):
+        state, t = frontend.vo_step_rgbd(state, seq_l[0, i].contiguous(),
+                                         depth0[i], cam, cfg_rgbd)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_lines = int(state.prev_lines.valid.sum())
+    require(bool(torch.isfinite(t.Tfw).all()) and bool(t.good)
+            and n_lines > 0 and not bool(state.prev_lines.level.any()),
+            f"rgbd with EDLines: good {bool(t.good)}, {n_lines} valid lines")
+    require(launches["fast_pack"] == 2 * cfg_rgbd.orb_nlevels
+            and launches["run_pack_multi"] == 0,
+            f"rgbd with EDLines: launches {launches}")
+    emit("vo_edlines", scales=r_ed,
+         ate_m={k: r["ate_m"] for k, r in r_ed.items()},
+         ms_per_step={k: r["ms_per_step"] for k, r in r_ed.items()},
+         launches_per_step={k: {n: c / nf for n, c in r["launches"].items()}
+                            for k, r in r_ed.items()},
+         rgbd_step=dict(lines=n_lines, inliers_ls=int(t.n_inliers_ls),
+                        launches=launches), card=smi)
+    return r_ed, launches
+
+
+def _leaves(tree) -> list:
+    """Every tensor of a (nested) NamedTuple."""
+    if isinstance(tree, tuple):
+        return [x for f in tree for x in _leaves(f)]
+    return [tree]
+
+
+def sharded_phase(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
+                  smi: str) -> dict:
+    """An NCCL world of one on the card (parallel.mesh.init_distributed
+    without torchrun's environment): the sharded VO step on the 8 lanes
+    against vo_step_batched, both timed in turns, `torch.equal` in every
+    telemetry field and the final state; on the ba_popcount window,
+    make_sharded_ba against ba_solve and the sharded window refiner
+    against refine_window, with the bf16 product's and with B5's
+    distances; tp_match against the dense matcher on its points."""
+    import torch.distributed as dist
+    from stvo_pl_tpu_torch.ops import hamming, matching, se3
+    from stvo_pl_tpu_torch.parallel import ba, batched, tp, window
+    from stvo_pl_tpu_torch.parallel import mesh as mesh_mod
+
+    sync = torch.cuda.synchronize
+    nf = POINTS_ONLY_FRAMES
+    dev = seq_l.device
+    mesh_mod.init_distributed(device_type=dev.type)
+    try:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"sharded: {dist.get_backend()} world of "
+                f"{dist.get_world_size()}")
+        mesh = mesh_mod.make_mesh(device_type=dev.type)
+        step, place = batched.make_sharded_vo_step(mesh, cam, cfg)
+        ms = {"unsharded": [], "sharded": []}
+        runs, launches = {}, {}
+        for rep in range(2):                 # in turns
+            for name in ("unsharded", "sharded"):
+                state = batched.init_batched_state(cfg, BATCH, device=dev)
+                if name == "sharded":
+                    state, _, _ = place(state, seq_l[:, 0], seq_r[:, 0])
+                for w in wrappers.values():
+                    w.launches = 0
+                tel = []
+                for i in range(nf):
+                    if i == WARMUP_FRAMES:
+                        sync()
+                        t0 = time.perf_counter()
+                    il = seq_l[:, i].contiguous()
+                    ir = seq_r[:, i].contiguous()
+                    if name == "sharded":
+                        state, t = step(state, mesh_mod.data_slice(mesh, il),
+                                        mesh_mod.data_slice(mesh, ir))
+                    else:
+                        state, t = batched.vo_step_batched(state, il, ir,
+                                                           cam, cfg)
+                    tel.append(t)
+                sync()
+                ms[name].append((time.perf_counter() - t0)
+                                / (nf - WARMUP_FRAMES) * 1e3)
+                if rep == 0:
+                    runs[name] = (tel, state)
+                    launches[name] = {k: w.launches
+                                      for k, w in wrappers.items()}
+        (tu, su), (ts, ss) = runs["unsharded"], runs["sharded"]
+        require(all(torch.equal(a, b) for x, y in zip(tu, ts)
+                    for a, b in zip(x, y))
+                and all(torch.equal(a, b)
+                        for a, b in zip(_leaves(su), _leaves(ss))),
+                "sharded: the sharded step differs from vo_step_batched")
+        expected = {"fast_pack": nf * cfg.orb_nlevels,
+                    "extract_patches": nf * cfg.orb_nlevels,
+                    "run_pack_multi": nf}
+        for k in wrappers:
+            require(launches["sharded"][k] == expected.get(k, 0),
+                    f"sharded: {k} launched {launches['sharded'][k]} times "
+                    f"in {nf} steps, expected {expected.get(k, 0)}")
+
+        # the landmark-sharded BA and window refiner, one window
+        win, kf_frames = first_window(root, cam, cfg)
+        prob = window.build_problem_tracks(win, cam, cfg)
+        poses_cw = se3.inverse_se3(win.Tfw)
+        solver = ba.make_sharded_ba(mesh, cam, n_iters=8, has_lines=True)
+        timing = {"sharded_ba": [], "ba_solve": []}
+        for _ in range(3):                   # in turns
+            for name in timing:
+                sync()
+                t0 = time.perf_counter()
+                if name == "sharded_ba":
+                    got = solver(poses_cw, prob.X, prob.obs, prob.mask,
+                                 prob.sigma2, prob.Xl, prob.obs_l,
+                                 prob.mask_l, prob.sigma2_l)
+                else:
+                    ref = ba.ba_solve(poses_cw, prob, cam, n_iters=8)
+                sync()
+                timing[name].append((time.perf_counter() - t0) * 1e3)
+        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                "sharded: make_sharded_ba differs from ba_solve")
+        refiner_b5 = {}
+        for route, use_mxu in (("bf16_product", True),
+                               ("popcount_kernel", False)):
+            c = cfg.replace(hamming_use_mxu=use_mxu)
+            hamming.hamming_matrix_popc.launches = 0
+            got = window.make_sharded_window_refiner(
+                mesh, cam, c, n_iters=8, has_lines=True)(win)
+            sync()
+            refiner_b5[route] = hamming.hamming_matrix_popc.launches
+            ref = window.refine_window(win, cam, c, n_iters=8)
+            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                    f"sharded: the window refiner ({route}) differs from "
+                    "refine_window")
+        n_pairs = BA_WINDOW * (BA_WINDOW - 1) // 2
+        require(refiner_b5 == {"bf16_product": 0,
+                               "popcount_kernel": 2 * n_pairs},
+                f"sharded: B5 launches in the refiner {refiner_b5}")
+
+        # the stand-alone TP matcher (one shard) against the dense one
+        d1, d2 = win.points.desc[0], win.points.desc[1]
+        v1, v2 = win.points.valid[0], win.points.valid[1]
+        res = tp.tp_match(d1, v1, d2, v2, cfg.min_ratio_12_p, mesh)
+        dense = matching.nnr_mutual_match(
+            hamming.hamming_matrix(d1, d2, use_mxu=False),
+            v1[:, None] & v2[None, :], cfg.min_ratio_12_p)
+        require(torch.equal(res.idx, dense.idx)
+                and torch.equal(res.valid, dense.valid),
+                "sharded: tp_match differs from nnr_mutual_match")
+        return dict(backend=dist.get_backend(),
+                    world=dist.get_world_size(), lanes=BATCH, frames=nf,
+                    timed_frames=nf - WARMUP_FRAMES, step_equal=True,
+                    ms_per_step=ms,
+                    launches=launches["sharded"],
+                    window_keyframes=kf_frames, ba_equal=True,
+                    ba_ms=timing, refiner_equal=True,
+                    refiner_b5_launches=refiner_b5,
+                    tp_match_equal=True, tp_matches=int(res.valid.sum()),
+                    card=smi)
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> None:
@@ -1143,6 +1363,10 @@ def main() -> None:
             and lsd_kernel.run_pack_multi.launches == nf,
             "rgbd: the step did not go through the FAST and run kernels")
 
+    # ---- 6d. EDLines: the quality mode (edline_scale 2) and full size --
+    r_ed, rgbd_ed_launches = edlines_phase(drive, check, seq_l, depth0, cam,
+                                           wrappers, smi)
+
     # ---- 7. the kernels' path against the plain path -------------------
     # lane 0's first frames through the port on the CPU (plain versions)
     cpu_state = frontend.init_state(cfg, device="cpu")
@@ -1194,6 +1418,10 @@ def main() -> None:
     r_bap = ba_popcount_phase(street, cam, cfg, smi)
     emit("ba_popcount", **r_bap)
 
+    # ---- 7d. the sharded step, BA and refiner in an NCCL world of one --
+    r_sh = sharded_phase(street, cam, cfg, seq_l, seq_r, wrappers, smi)
+    emit("sharded", **r_sh)
+
     # ---- 8. B4 split into its passes, by torch.profiler ----------------
     # last: after a profiler session in this process the VO phases' steps
     # read slower on the host clock (PERF.md §5)
@@ -1217,7 +1445,13 @@ def main() -> None:
         "vo_popcount": r_popc["launches"], "rgbd": rgbd_launches,
         "cli_ba": r_cli["launches"],
         "ba_popcount": {"hamming_matrix_popc":
-                        r_bap["b5_launches"]["popcount_kernel"]}}
+                        r_bap["b5_launches"]["popcount_kernel"]},
+        "vo_edlines_scale2": r_ed["scale2"]["launches"],
+        "vo_edlines_scale1": r_ed["scale1"]["launches"],
+        "rgbd_edlines": rgbd_ed_launches,
+        "sharded": r_sh["launches"],
+        "sharded_refiner": {"hamming_matrix_popc":
+                            r_sh["refiner_b5_launches"]["popcount_kernel"]}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
               (b4, r_dense["per_direction"]), (b5, r_popc)]
     table = [{k: row[k] for k in keys} for row in

@@ -4,10 +4,10 @@ YAML loading with per-key fallback.
 
 Defaults replicate the reference StVO-PL defaults (src/config.cpp:36-113);
 unknown YAML keys are ignored and missing keys keep their defaults
-(Config::loadFromFile, src/config.cpp:123-206).  The port runs points,
-the multi-octave canvas line detector and the dense single-octave one
-(`lsd_octaves=1`); only `use_edlines=True` is rejected by the VO step,
-until the EDLine detector is ported.
+(Config::loadFromFile, src/config.cpp:123-206).  The port runs every
+configuration: points, the multi-octave canvas line detector, the dense
+single-octave one (`lsd_octaves=1`) and the EDLine detector
+(`use_edlines=True`).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ class VOConfig:
 
     # ---- matching windows ---------------------------------------------
     matching_strategy: int = 0
-    tp_min_features: int = 4096      # model-parallel matcher switch (JAX)
+    tp_min_features: int = 4096      # column-sharded matcher switch (tp.py)
     matching_s_ws: int = 10          # stereo search window [grid cells]
     matching_f2f_ws: int = 3         # f2f search window [grid cells]
 
@@ -103,7 +103,7 @@ class VOConfig:
     lsd_n_bins: int = 1024
     lsd_right_lite: bool = False
 
-    # ---- EDLine-style line detector (not ported yet) ------------------
+    # ---- EDLine-style line detector -----------------------------------
     use_edlines: bool = False
     edline_grad_th: float = 20.0
     edline_anchor_th: float = 8.0

@@ -15,8 +15,9 @@ Lines come from the one-pass multi-octave canvas detector
 (`lsd_octaves > 1`, the default) or from the dense single-octave detector
 (`lsd_octaves <= 1`: `detect_lines_scaled` on the `lsd_scale`-resampled
 image, LBD on the full-resolution Sobel planes), whose run candidates come
-from either generator of ops/lsd.py (`per_direction`).  The EDLine
-detector is not ported yet and raises.  `extract_rgbd_features` is the
+from either generator of ops/lsd.py (`per_direction`), or from the
+EDLine detector (`use_edlines`, ops/edline.py, both eyes in one pass,
+optionally at 1/edline_scale resolution).  `extract_rgbd_features` is the
 RGB-D front end: one intensity image and a registered depth map per lane.
 """
 
@@ -35,7 +36,7 @@ from stvo_pl_tpu_torch.models.features import (LineSet, PointSet,
                                                empty_lines, empty_points)
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import fast as fast_ops
-from stvo_pl_tpu_torch.ops import lbd, lsd, matching, orb, subpix
+from stvo_pl_tpu_torch.ops import edline, lbd, lsd, matching, orb, subpix
 from stvo_pl_tpu_torch.ops.image import (gaussian_blur, pyramid_levels,
                                          resize_bilinear, sobel)
 
@@ -119,8 +120,8 @@ _take = lsd.take      # x [B, M, ...] at j [B, K] along axis 1
 
 
 def match_stereo_points(det_l: DetectedPoints, det_r: DetectedPoints,
-                        cam: cam_ops.StereoCamera,
-                        cfg: VOConfig) -> PointSet:
+                        cam: cam_ops.StereoCamera, cfg: VOConfig,
+                        tp=None) -> PointSet:
     """Grid-windowed stereo matching + epipolar / disparity filters +
     back-projection, [B, K] lanes.  With cfg.subpix_disp the disparity is
     re-estimated photometrically when both corners share a level."""
@@ -132,7 +133,7 @@ def match_stereo_points(det_l: DetectedPoints, det_r: DetectedPoints,
                                              cfg.matching_s_ws)
     cand = cand & valid_l[..., :, None] & det_r.valid[..., None, :]
     res = matching.match_auto(desc_l, det_r.desc, cand, cfg.min_ratio_12_p,
-                              cfg, wta_k=cfg.orb_wta_k)
+                              cfg, tp=tp, wta_k=cfg.orb_wta_k)
 
     j = torch.clamp(res.idx, min=0)
     uv_rm = _take(det_r.uv, j)
@@ -192,7 +193,8 @@ def _overlap_stereo(sy_l, ey_l, sy_r, ey_r, horiz_th: float):
 def match_stereo_lines(lines_l: lsd.LineSegments, desc_l: torch.Tensor,
                        lines_r: lsd.LineSegments, desc_r: torch.Tensor,
                        cam: cam_ops.StereoCamera, cfg: VOConfig,
-                       level_l: torch.Tensor | None = None) -> LineSet:
+                       level_l: torch.Tensor | None = None,
+                       tp=None) -> LineSet:
     """Stereo line matching over [B, K] lanes: direction + grid proximity
     candidates, NNR + mutual, endpoint disparity by line intersection,
     overlap and disparity consistency filters, endpoint back-projection
@@ -210,7 +212,8 @@ def match_stereo_lines(lines_l: lsd.LineSegments, desc_l: torch.Tensor,
     u_r = d_r / torch.clamp(lsd.norm2(d_r), min=1e-6)[..., None]
     cand = cand & matching.line_direction_mask(u_l, u_r, cfg.line_sim_th)
     cand = cand & lines_l.valid[..., :, None] & lines_r.valid[..., None, :]
-    res = matching.match_auto(desc_l, desc_r, cand, cfg.min_ratio_12_p, cfg)
+    res = matching.match_auto(desc_l, desc_r, cand, cfg.min_ratio_12_p, cfg,
+                              tp=tp)
 
     j = torch.clamp(res.idx, min=0)
     sp_r = _take(lines_r.sp, j)
@@ -599,29 +602,71 @@ def detect_lines_octaves(im: torch.Tensor, min_line_length: float,
                              pool=pool)
 
 
+def _slice_segs(segs: lsd.LineSegments, sl: slice) -> lsd.LineSegments:
+    return lsd.LineSegments(*[x[sl] for x in segs])
+
+
 def _slice_canvas(cv: OctaveCanvas, sl: slice) -> OctaveCanvas:
     return cv._replace(ang=cv.ang[sl], mag=cv.mag[sl], packed=cv.packed[sl],
                        g2=cv.g2[sl])
 
 
-def _refuse_edlines(cfg: VOConfig) -> None:
-    if cfg.has_lines and cfg.use_edlines:
-        raise NotImplementedError(
-            "use_edlines=True: the EDLine detector is not ported yet "
-            "(ROADMAP item 12); use the LSD detectors")
+def detect_edlines_stereo(im: torch.Tensor, min_line_length: float,
+                          cfg: VOConfig) -> lsd.LineSegments:
+    """EDLines on [N, H, W] images as the stereo front end runs it
+    (stvo_pl_tpu/models/frame.py:622-654).  With edline_scale f > 1 the
+    detection runs on the antialiased 1/f image: the resize low-passes, so
+    the detector's own sigma-1 pre-smooth is skipped; support and length
+    thresholds move to detection coordinates, the node budget shrinks with
+    the pixel count (~7% edge area), and the segments are mapped back to
+    the source image by the exact half-pixel-centre map."""
+    f = max(1, int(cfg.edline_scale))
+    H0, W0 = im.shape[-2:]
+    det_im = im
+    if f > 1:
+        det_im = resize_bilinear(im, H0 // f, W0 // f, blur_sigma=1.0)
+    Hd, Wd = det_im.shape[-2:]
+    segs = edline.detect_edlines(
+        det_im, min_line_length / f, capacity=cfg.line_capacity,
+        grad_th=cfg.edline_grad_th, anchor_th=cfg.edline_anchor_th,
+        ang_tol_deg=cfg.edline_ang_tol,
+        min_support=max(4, cfg.edline_min_support // f),
+        straight_tol=cfg.edline_straight_tol,
+        density_th=cfg.edline_density_th,
+        split_rounds=cfg.edline_split_rounds,
+        smooth_sigma=0.0 if f > 1 else 1.0,
+        node_capacity=min(16384, max(2048, (Hd * Wd) // 14)))
+    if f > 1:
+        kw = dict(dtype=segs.sp.dtype, device=segs.sp.device)
+        inv = torch.tensor([W0 / Wd, H0 / Hd], **kw)
+        lim = torch.tensor([W0 - 1.0, H0 - 1.0], **kw)
+
+        def to0(p):
+            return torch.minimum(torch.clamp((p + 0.5) * inv - 0.5, min=0.0),
+                                 lim)
+
+        sp0, ep0 = to0(segs.sp), to0(segs.ep)
+        d0 = ep0 - sp0
+        segs = segs._replace(sp=sp0, ep=ep0,
+                             angle=torch.atan2(d0[..., 1], d0[..., 0]),
+                             length=lsd.norm2(d0))
+    return segs
 
 
 def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
                             fast_th: torch.Tensor, min_line_length: float,
                             cam: cam_ops.StereoCamera, cfg: VOConfig,
-                            per_direction: bool = False) -> FrameFeatures:
+                            per_direction: bool = False,
+                            tp=None) -> FrameFeatures:
     """Front end for B stereo pairs [B, H, W] with FAST thresholds [B] and
     the line-length threshold in pixels: points and lines, both eyes in
     one batch through every kernel.  `per_direction` selects the run
     candidate generator of the dense single-octave detector
     (`lsd_octaves <= 1`); the octave canvas always takes the all-direction
-    one."""
-    _refuse_edlines(cfg)
+    one.  With `use_edlines` both eyes go through one EDLines pass and one
+    LBD pass at full density, level 0 for every line.  `tp` = (model-axis
+    process group, shards) column-shards the matchers' distance matrices
+    (ops/matching.match_auto)."""
     B = img_l.shape[0]
     dev, dtype = img_l.device, img_l.dtype
     both = torch.cat([img_l, img_r])
@@ -630,11 +675,18 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
                                        cfg)
         det_l = DetectedPoints(*[t[:B] for t in det])
         det_r = DetectedPoints(*[t[B:] for t in det])
-        points = match_stereo_points(det_l, det_r, cam, cfg)
+        points = match_stereo_points(det_l, det_r, cam, cfg, tp=tp)
     else:
         points = empty_points(cfg.point_capacity, dtype, dev, (B,))
 
-    if cfg.has_lines and cfg.lsd_octaves <= 1:
+    if cfg.has_lines and cfg.use_edlines:
+        segs = detect_edlines_stereo(both, min_line_length, cfg)
+        gx, gy = sobel(both)
+        ldesc = _lbd_two_bucket(gx, gy, segs, cfg)
+        lines = match_stereo_lines(
+            _slice_segs(segs, slice(0, B)), ldesc[:B],
+            _slice_segs(segs, slice(B, 2 * B)), ldesc[B:], cam, cfg, tp=tp)
+    elif cfg.has_lines and cfg.lsd_octaves <= 1:
         fd = dense_field(both, cfg, per_direction)
         gx, gy = sobel(both)
         eyes = []
@@ -645,7 +697,7 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
             eyes.append((segs, _lbd_two_bucket(gx[sl], gy[sl], segs, cfg)))
         (segs_l, ldesc_l), (segs_r, ldesc_r) = eyes
         lines = match_stereo_lines(segs_l, ldesc_l, segs_r, ldesc_r, cam,
-                                   cfg)
+                                   cfg, tp=tp)
     elif cfg.has_lines:
         cv = octave_canvas(both, cfg)
         segs_l, octv_l, ldesc_l = lines_from_canvas(
@@ -655,7 +707,7 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
             pool=(cfg.lsd_oct_pool_right if cfg.lsd_oct_pool_right > 0
                   else None))
         lines = match_stereo_lines(segs_l, ldesc_l, segs_r, ldesc_r, cam,
-                                   cfg, level_l=octv_l)
+                                   cfg, level_l=octv_l, tp=tp)
     else:
         lines = empty_lines(cfg.line_capacity, dtype, dev, (B,))
     return FrameFeatures(points=points, lines=lines)
@@ -679,9 +731,10 @@ def extract_rgbd_features(img: torch.Tensor, depth: torch.Tensor,
     src/stereoFrame.cpp:667-818): detect on the intensity images [B, H, W]
     only; disparity comes from the registered metric depth maps [B, H, W]
     (disp = fx b / depth; invalid pixels <= 0), gated by rgbd_min/max_depth
-    and min_disp.  Lines come from the dense detector on the image as it
-    is, whatever cfg.lsd_octaves says."""
-    _refuse_edlines(cfg)
+    and min_disp.  Lines come from EDLines at full resolution with its
+    default node budget and smoothing (`use_edlines`, edline_scale is not
+    read) or else from the dense detector on the image as it is, whatever
+    cfg.lsd_octaves says."""
     B = img.shape[0]
     dev, dtype = img.device, img.dtype
     fxb = cam.fx * cam.b
@@ -706,12 +759,22 @@ def extract_rgbd_features(img: torch.Tensor, depth: torch.Tensor,
         points = empty_points(cfg.point_capacity, dtype, dev, (B,))
 
     if cfg.has_lines:
-        segs = lsd.detect_line_segments(
-            img, min_line_length, capacity=cfg.line_capacity,
-            n_dirs=cfg.lsd_n_dirs, ang_th_deg=cfg.lsd_ang_th,
-            quant=cfg.lsd_quant, density_th=cfg.lsd_density_th,
-            log_eps=(cfg.lsd_log_eps if cfg.lsd_refine >= 2 else -1.0),
-            per_direction=per_direction)
+        if cfg.use_edlines:
+            segs = edline.detect_edlines(
+                img, min_line_length, capacity=cfg.line_capacity,
+                grad_th=cfg.edline_grad_th, anchor_th=cfg.edline_anchor_th,
+                ang_tol_deg=cfg.edline_ang_tol,
+                min_support=cfg.edline_min_support,
+                straight_tol=cfg.edline_straight_tol,
+                density_th=cfg.edline_density_th,
+                split_rounds=cfg.edline_split_rounds)
+        else:
+            segs = lsd.detect_line_segments(
+                img, min_line_length, capacity=cfg.line_capacity,
+                n_dirs=cfg.lsd_n_dirs, ang_th_deg=cfg.lsd_ang_th,
+                quant=cfg.lsd_quant, density_th=cfg.lsd_density_th,
+                log_eps=(cfg.lsd_log_eps if cfg.lsd_refine >= 2 else -1.0),
+                per_direction=per_direction)
         gx, gy = sobel(img)
         ldesc = _lbd_two_bucket(gx, gy, segs, cfg)
         ds = _sample_depth(depth, segs.sp)

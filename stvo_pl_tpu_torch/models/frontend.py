@@ -103,7 +103,8 @@ def _grid_scales(cfg: VOConfig, cam: cam_ops.StereoCamera):
 
 
 def match_f2f_points(prev: PointSet, curr: PointSet, cfg: VOConfig,
-                     cam: cam_ops.StereoCamera | None = None) -> PointMatches:
+                     cam: cam_ops.StereoCamera | None = None,
+                     tp=None) -> PointMatches:
     """matchF2FPoints: descriptor matching (NNR + mutual) of the previous
     against the current stereo points; matching_strategy 1 adds a
     +-matching_f2f_ws grid-cell window."""
@@ -113,7 +114,7 @@ def match_f2f_points(prev: PointSet, curr: PointSet, cfg: VOConfig,
         cand = cand & matching.f2f_point_window_mask(
             prev.uv, curr.uv, inv_w, inv_h, cfg.matching_f2f_ws)
     res = matching.match_auto(prev.desc, curr.desc, cand, cfg.min_ratio_12_p,
-                              cfg, wta_k=cfg.orb_wta_k)
+                              cfg, tp=tp, wta_k=cfg.orb_wta_k)
     obs = frame_mod._take(curr.uv, torch.clamp(res.idx, min=0))
     valid = res.valid & prev.valid
     return PointMatches(P=prev.P,
@@ -124,7 +125,8 @@ def match_f2f_points(prev: PointSet, curr: PointSet, cfg: VOConfig,
 
 
 def match_f2f_lines(prev: LineSet, curr: LineSet, cfg: VOConfig,
-                    cam: cam_ops.StereoCamera | None = None) -> LineMatches:
+                    cam: cam_ops.StereoCamera | None = None,
+                    tp=None) -> LineMatches:
     """matchF2FLines: descriptor matching; the observation is the current
     frame's infinite-line coefficients."""
     cand = prev.valid[..., :, None] & curr.valid[..., None, :]
@@ -134,7 +136,7 @@ def match_f2f_lines(prev: LineSet, curr: LineSet, cfg: VOConfig,
             0.5 * (prev.spl + prev.epl), 0.5 * (curr.spl + curr.epl),
             inv_w, inv_h, cfg.matching_f2f_ws)
     res = matching.match_auto(prev.desc, curr.desc, cand, cfg.min_ratio_12_l,
-                              cfg)
+                              cfg, tp=tp)
     le_obs = frame_mod._take(curr.le, torch.clamp(res.idx, min=0))
     valid = res.valid & prev.valid
     return LineMatches(sP=prev.sP, eP=prev.eP, spl=prev.spl, epl=prev.epl,
@@ -222,14 +224,17 @@ def _check_images(state: VOState, cam: cam_ops.StereoCamera, **images):
 
 def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                cam: cam_ops.StereoCamera, cfg: VOConfig,
-               per_direction: bool = False) -> tuple[VOState, StepTelemetry]:
-    """Process B rectified stereo pairs [B, H, W] for B lanes of state."""
+               per_direction: bool = False,
+               tp=None) -> tuple[VOState, StepTelemetry]:
+    """Process B rectified stereo pairs [B, H, W] for B lanes of state.
+    tp = (model-axis process group, n_shards) column-shards every matcher
+    whose query set reaches cfg.tp_min_features (ops/matching.match_auto)."""
     _check_images(state, cam, imgs_l=imgs_l, imgs_r=imgs_r)
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_stereo_features(
         imgs_l.to(torch.float32), imgs_r.to(torch.float32), state.fast_th,
-        llength_th, cam, cfg, per_direction=per_direction)
-    return _track_and_update(state, feats, cam, cfg)
+        llength_th, cam, cfg, per_direction=per_direction, tp=tp)
+    return _track_and_update(state, feats, cam, cfg, tp=tp)
 
 
 def step_lanes_rgbd(state: VOState, imgs: torch.Tensor, depths: torch.Tensor,
@@ -247,10 +252,10 @@ def step_lanes_rgbd(state: VOState, imgs: torch.Tensor, depths: torch.Tensor,
     return _track_and_update(state, feats, cam, cfg)
 
 
-def _track_and_update(state: VOState, feats, cam, cfg: VOConfig):
+def _track_and_update(state: VOState, feats, cam, cfg: VOConfig, tp=None):
     dtype = state.Tfw.dtype
-    pm = match_f2f_points(state.prev_points, feats.points, cfg, cam)
-    lm = match_f2f_lines(state.prev_lines, feats.lines, cfg, cam)
+    pm = match_f2f_points(state.prev_points, feats.points, cfg, cam, tp=tp)
+    lm = match_f2f_lines(state.prev_lines, feats.lines, cfg, cam, tp=tp)
     est, pm, lm = optimizer.optimize_pose(
         pm, lm, cam, cfg, state.DT, state.DT_cov, state.err_norm)
 

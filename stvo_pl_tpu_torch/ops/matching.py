@@ -1,5 +1,6 @@
 """Dense masked correspondence search, batched over leading dims (port of
-stvo_pl_tpu/ops/matching.py without its model-parallel matcher).
+stvo_pl_tpu/ops/matching.py; the model-parallel matcher that `match_auto`
+switches to is parallel/tp.py).
 
 Every matcher is one dense distance matrix + candidate mask + top-2 and
 argmin reductions; the reference's grid buckets become predicates on
@@ -45,8 +46,22 @@ def nnr_mutual_match(dist: torch.Tensor, cand: torch.Tensor, nnr: float,
     return MatchResult(idx=idx, valid=ok)
 
 
-def match_auto(desc1, desc2, cand, nnr, cfg, wta_k: int = 2) -> MatchResult:
-    """Brute-force NNR + mutual matching with the configured distance."""
+def match_auto(desc1, desc2, cand, nnr, cfg, tp=None,
+               wta_k: int = 2) -> MatchResult:
+    """Brute-force NNR + mutual matching with the configured distance.
+
+    tp = (model-axis process group, n_shards) inside a sharded step: the
+    column-sharded matcher (parallel/tp.tp_match_inner) takes over when
+    the query set reaches cfg.tp_min_features and the train set divides
+    evenly; below that the duplicated front end outweighs the split
+    distance matrix and the dense matcher stays.  Both give the same
+    result bit for bit."""
+    if (tp is not None and desc1.shape[-2] >= cfg.tp_min_features
+            and desc2.shape[-2] % tp[1] == 0):
+        from stvo_pl_tpu_torch.parallel.tp import tp_match_inner
+        return tp_match_inner(desc1, desc2, cand, nnr, group=tp[0],
+                              n_shards=tp[1], mutual=cfg.best_lr_matches,
+                              wta_k=wta_k, use_mxu=cfg.hamming_use_mxu)
     dist = hamming.distance_matrix(desc1, desc2, cfg.hamming_use_mxu,
                                    wta_k=wta_k)
     return nnr_mutual_match(dist, cand, nnr, mutual=cfg.best_lr_matches)

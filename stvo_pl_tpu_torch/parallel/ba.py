@@ -1,5 +1,6 @@
 """Windowed bundle adjustment with Schur-complement reduction (port of
-stvo_pl_tpu/parallel/ba.py, single device).
+stvo_pl_tpu/parallel/ba.py): `ba_solve` on one device, `make_sharded_ba`
+with the landmarks split over the ranks of a mesh's data axis.
 
 Jointly refines a window of K keyframe poses against N tracked POINT
 landmarks and Nl tracked LINE landmarks:
@@ -30,10 +31,12 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from stvo_pl_tpu_torch.models.optimizer import segment_overlap
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import robust, se3
+from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis
 
 
 class BAProblem(NamedTuple):
@@ -284,13 +287,11 @@ def _back_substitute(aux, dxi, X, mask):
     return X + torch.where(seen[:, None], dX, torch.zeros_like(dX))
 
 
-def ba_iteration(poses_cw, prob: BAProblem, cam, damping=1e-4,
-                 kernel="cauchy", update_landmarks=True):
-    """One GN/LM step of windowed BA.  Returns (poses, X, Xl, cost); Xl is
-    None for points-only problems."""
+def _update(poses_cw, prob: BAProblem, S, b, aux_p, aux_l, damping,
+            update_landmarks=True):
+    """Solve the reduced system for the pose update, apply it and
+    back-substitute the landmarks.  Returns (poses, X, Xl)."""
     K = poses_cw.shape[0]
-    S, b, aux_p, aux_l, cost, _ = _reduced_system(poses_cw, prob, cam,
-                                                  kernel)
     dxi = _solve_reduced(S, b, damping, K)
     poses_new = _apply_pose_update(poses_cw, dxi)
     X_new, Xl_new = prob.X, prob.Xl
@@ -303,7 +304,17 @@ def ba_iteration(poses_cw, prob: BAProblem, cam, damping=1e-4,
             Xl_flat = _back_substitute(aux_l, dxi, prob.Xl.reshape(2 * Nl, 3),
                                        mask_ep)
             Xl_new = Xl_flat.reshape(Nl, 2, 3)
-    return poses_new, X_new, Xl_new, cost
+    return poses_new, X_new, Xl_new
+
+
+def ba_iteration(poses_cw, prob: BAProblem, cam, damping=1e-4,
+                 kernel="cauchy", update_landmarks=True):
+    """One GN/LM step of windowed BA.  Returns (poses, X, Xl, cost); Xl is
+    None for points-only problems."""
+    S, b, aux_p, aux_l, cost, _ = _reduced_system(poses_cw, prob, cam,
+                                                  kernel)
+    return (*_update(poses_cw, prob, S, b, aux_p, aux_l, damping,
+                     update_landmarks), cost)
 
 
 def ba_solve(poses_cw, prob: BAProblem, cam, n_iters: int = 8,
@@ -320,3 +331,64 @@ def ba_solve(poses_cw, prob: BAProblem, cam, n_iters: int = 8,
             update_landmarks)
         costs.append(cost)
     return poses, X, Xl, torch.stack(costs)
+
+
+def make_sharded_ba(mesh, cam, n_iters: int = 8, damping: float = 1e-4,
+                    kernel: str = "cauchy", has_lines: bool = False):
+    """Distributed windowed BA: landmarks sharded over the mesh's data
+    axis (port of stvo_pl_tpu/parallel/ba.py:356-419).
+
+    Returns `solve(poses_cw, X, obs, mask, sigma2[, Xl, obs_l, mask_l,
+    sigma2_l])`, called by every rank with the whole problem (the window
+    refiner builds it on each).  A rank keeps its contiguous 1/n_data of
+    the point (and line) landmarks; per iteration it builds its partial
+    reduced system S, b and cost, one all-reduce (SUM) over the data
+    group sums them (packed into one buffer), every rank solves the
+    [6K, 6K] system (cheaper than a gather), and the landmark update stays
+    local.  Returns (poses, X_shard, costs) or, with has_lines, (poses,
+    X_shard, Xl_shard, costs): the poses and costs are the same on every
+    rank, the landmarks this rank's rows.  A landmark count that n_data
+    does not divide raises ValueError."""
+    group, n_data, rank = axis(mesh, DATA_AXIS)
+
+    def shard(name, *xs):
+        n = xs[0].shape[0]
+        if n % n_data != 0:
+            raise ValueError(f"{n} {name} landmarks do not split over "
+                             f"{n_data} data-axis ranks")
+        m = n // n_data
+        return [x[rank * m:(rank + 1) * m] for x in xs]
+
+    def one_iter(poses_cw, prob: BAProblem):
+        S, b, aux_p, aux_l, cost, _ = _reduced_system(poses_cw, prob, cam,
+                                                      kernel)
+        flat = torch.cat([S.reshape(-1), b.reshape(-1), cost.reshape(1)])
+        if group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        nS = S.numel()
+        S = flat[:nS].reshape(S.shape)
+        b = flat[nS:nS + b.numel()].reshape(b.shape)
+        return (*_update(poses_cw, prob, S, b, aux_p, aux_l, damping),
+                flat[-1])
+
+    def solve(poses_cw, X, obs, mask, sigma2,
+              Xl=None, obs_l=None, mask_l=None, sigma2_l=None):
+        check_precision(poses_cw)
+        X, obs, mask, sigma2 = shard("point", X, obs, mask, sigma2)
+        if has_lines:
+            Xl, obs_l, mask_l, sigma2_l = shard("line", Xl, obs_l, mask_l,
+                                                sigma2_l)
+        else:
+            Xl = obs_l = mask_l = sigma2_l = None
+        prob = BAProblem(X=X, obs=obs, mask=mask, sigma2=sigma2, Xl=Xl,
+                         obs_l=obs_l, mask_l=mask_l, sigma2_l=sigma2_l)
+        poses, costs = poses_cw, []
+        for _ in range(n_iters):
+            poses, X2, Xl2, cost = one_iter(poses, prob)
+            prob = prob._replace(X=X2, Xl=Xl2)
+            costs.append(cost)
+        if has_lines:
+            return poses, prob.X, prob.Xl, torch.stack(costs)
+        return poses, prob.X, torch.stack(costs)
+
+    return solve

@@ -1,6 +1,5 @@
 """Sliding-window keyframe refinement: the bridge between the frame-to-frame
-VO engine and the windowed BA (port of stvo_pl_tpu/parallel/window.py,
-single device).
+VO engine and the windowed BA (port of stvo_pl_tpu/parallel/window.py).
 
   * landmarks = MULTI-ANCHOR tracks unioned across all window keyframes
     (build_problem_tracks): every pair of keyframes is mutually matched
@@ -11,7 +10,8 @@ single device).
     observation table with a reprojection gate;
   * observations = stereo (u_l, v, u_r) measurements from each member's
     own detection + disparity;
-  * solve with parallel.ba.
+  * solve with parallel.ba (`make_sharded_window_refiner`: landmarks
+    split over a mesh's data axis).
 
 Two members of one component can sit in the same keyframe (features i
 and j of keyframe 0 joined through keyframes 1 and 2).  The reference
@@ -29,12 +29,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from stvo_pl_tpu_torch.config import VOConfig
 from stvo_pl_tpu_torch.models.features import LineSet, PointSet
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import hamming, matching, se3
 from stvo_pl_tpu_torch.parallel import ba
+from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis
 
 
 class KeyframeWindow(NamedTuple):
@@ -350,3 +352,40 @@ def refine_window_auto(win: KeyframeWindow, cam: cam_ops.StereoCamera,
     X = torch.where(use_lines, Xj, Xp)
     costs = torch.where(use_lines, costs_j, costs_p)
     return se3.inverse_se3(poses), X, costs, use_lines
+
+
+def make_sharded_window_refiner(mesh, cam: cam_ops.StereoCamera,
+                                cfg: VOConfig, n_iters: int = 6,
+                                multi_anchor: bool = True,
+                                has_lines: bool = False):
+    """Landmark-sharded window refinement (port of
+    stvo_pl_tpu/parallel/window.py:359-384): every rank builds the whole
+    problem (matching is cheap), then solves its landmark shard with
+    parallel.ba.make_sharded_ba, whose reduced camera systems are summed
+    over the data axis.  has_lines must match whether the windows carry
+    LineSet snapshots.  `refine(win)` returns (Tfw refined [K, 4, 4],
+    points [K * Np, 3] gathered in rank order, the shape `refine_window`
+    returns, costs [n_iters]), the same on every rank."""
+    solver = ba.make_sharded_ba(mesh, cam, n_iters=n_iters,
+                                has_lines=has_lines)
+    build = build_problem_tracks if multi_anchor else build_problem
+    group, n_data, _ = axis(mesh, DATA_AXIS)
+
+    def refine(win: KeyframeWindow):
+        prob = build(win, cam, cfg)
+        poses_cw = se3.inverse_se3(win.Tfw)
+        if has_lines:
+            poses_cw, X, _, costs = solver(
+                poses_cw, prob.X, prob.obs, prob.mask, prob.sigma2,
+                prob.Xl, prob.obs_l, prob.mask_l, prob.sigma2_l)
+        else:
+            poses_cw, X, costs = solver(poses_cw, prob.X, prob.obs,
+                                        prob.mask, prob.sigma2)
+        if n_data > 1:
+            X_all = torch.empty(n_data * X.numel(), dtype=X.dtype,
+                                device=X.device)
+            dist.all_gather_into_tensor(X_all, X.reshape(-1), group=group)
+            X = X_all.reshape(-1, 3)
+        return se3.inverse_se3(poses_cw), X, costs
+
+    return refine

@@ -206,23 +206,21 @@ def test_extract_stereo_features_with_lines(frame):
     assert not pts.lines.valid.any()
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"use_edlines": True}, "use_edlines"),
-    ({"lsd_octaves": 1}, "lsd_octaves=1"),
+@pytest.mark.parametrize("overrides", [
+    {"use_edlines": True},
+    {"use_edlines": True, "edline_scale": 2},
+    {"lsd_octaves": 1},
 ])
-def test_unported_line_detectors_raise(frame, overrides, match):
-    """The EDLine detector raises, naming its roadmap item; the dense
-    single-octave detector, which used to, runs: level 0 for every line."""
+def test_other_line_detectors_run(frame, overrides):
+    """The EDLine detector (at full and half resolution) and the dense
+    single-octave detector, which both used to raise, run on the CPU:
+    full-capacity line sets, level 0 for every line, finite 3-D
+    endpoints."""
     cfg = TCfg(**SMALL, **overrides)
     th = torch.full((1,), 20.0)
     args = (tt(frame[:1]), tt(frame[1:]), th, MIN_LEN, TCAM, cfg)
-    if cfg.use_edlines:
-        with pytest.raises(NotImplementedError, match=match):
-            tframe.extract_stereo_features(*args)
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-            tframe.extract_stereo_features(*args)
-    else:
-        lines = tframe.extract_stereo_features(*args).lines
-        assert lines.spl.shape == (1, cfg.line_capacity, 2)
-        assert lines.desc.dtype == torch.int32 and not lines.level.any()
-        assert bool(torch.isfinite(lines.sP).all())
+    lines = tframe.extract_stereo_features(*args).lines
+    assert lines.spl.shape == (1, cfg.line_capacity, 2)
+    assert lines.desc.dtype == torch.int32 and not lines.level.any()
+    assert bool(torch.isfinite(lines.sP).all())
+    assert bool(torch.isfinite(lines.eP).all())

@@ -20,6 +20,9 @@ PKG = os.path.join(ROOT, "stvo_pl_tpu_torch")
 SOURCES = sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
     if f.endswith((".py", ".cu"))) + [os.path.join(ROOT, "chip_smoke.py")]
+# the port-only worker of tests/test_torch_parallel.py
+WORKER = os.path.join(ROOT, "tools", "torch_dist_worker.py")
+SOURCES.append(WORKER)
 MODULES = sorted(
     os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").replace(
         ".__init__", "")
@@ -31,6 +34,7 @@ def test_imports_with_jax_blocked():
             "import importlib\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "import chip_smoke\n"
+            "sys.path.insert(0, 'tools'); import torch_dist_worker\n"
             "assert not any(k == 'stvo_pl_tpu' or k.startswith('stvo_pl_tpu.')"
             " for k in sys.modules)\n"
             "print('ok')")
@@ -75,10 +79,13 @@ def test_lines_and_bad_inputs_are_refused():
     from stvo_pl_tpu_torch.parallel import batched
     cam = tcam.StereoCamera(160.0, 160.0, 60.0, 40.0, 0.3, 120, 80)
     img = torch.zeros((2, 80, 120))
-    cfg = VOConfig(use_edlines=True)
+    # the EDLine detector runs: full-capacity lines at level 0, finite
+    cfg = VOConfig(use_edlines=True, orb_nfeatures=100, lsd_nfeatures=16)
     st = batched.init_batched_state(cfg, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="use_edlines"):
-        batched.vo_step_batched(st, img, img, cam, cfg)
+    st, tel = batched.vo_step_batched(st, img, img, cam, cfg)
+    assert st.prev_lines.spl.shape == (2, 16, 2)
+    assert not st.prev_lines.level.any()
+    assert bool(torch.isfinite(tel.Tfw).all())
     # the dense single-octave detector runs, with either generator
     cfg = VOConfig(lsd_octaves=1, orb_nfeatures=100, lsd_nfeatures=16)
     for per_direction in (False, True):
@@ -105,10 +112,18 @@ def test_lines_and_bad_inputs_are_refused():
 
 
 def test_application_modules_are_checked():
-    """The windowed BA, the back end, the dataset CLI and its utilities
-    are among the modules imported with JAX blocked and scanned above."""
+    """The windowed BA, the back end, the dataset CLI and its utilities,
+    the EDLine detector and the scale-out modules are among the modules
+    imported with JAX blocked and scanned above, and the multi-process
+    test's worker script among the files scanned."""
+    assert WORKER in SOURCES
     for m in ("stvo_pl_tpu_torch.parallel.ba",
               "stvo_pl_tpu_torch.parallel.window",
+              "stvo_pl_tpu_torch.ops.edline",
+              "stvo_pl_tpu_torch.parallel.mesh",
+              "stvo_pl_tpu_torch.parallel.tp",
+              "stvo_pl_tpu_torch.parallel.groups",
+              "stvo_pl_tpu_torch.parallel.batched",
               "stvo_pl_tpu_torch.models.backend", "stvo_pl_tpu_torch.cli",
               "stvo_pl_tpu_torch.utils.dataset",
               "stvo_pl_tpu_torch.utils.world",

@@ -136,7 +136,7 @@ def test_rgbd_lines_per_direction_against_jax(frames):
 
 def test_rgbd_depth_gating(rng):
     """Features on pixels with invalid or out-of-range depth are dropped;
-    EDLines still raise."""
+    EDLines run (full-capacity lines at level 0, finite)."""
     img = tt((rng.random((1, 180, 240)) * 255).astype(np.float32))
     cfg = TCfg(**CFG_ARGS)
     th = torch.full((1,), 20.0)
@@ -149,9 +149,12 @@ def test_rgbd_depth_gating(rng):
     assert feats.points.valid.sum() > 50
     np.testing.assert_allclose(feats.points.disp[feats.points.valid].numpy(),
                                160.0 * 0.2 / 4.0, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="use_edlines"):
-        tframe.extract_rgbd_features(img, depth, th, 6.0, TCAM,
-                                     cfg.replace(use_edlines=True))
+    feats = tframe.extract_rgbd_features(img, torch.full((1, 180, 240), 4.0),
+                                         th, 6.0, TCAM,
+                                         cfg.replace(use_edlines=True))
+    assert feats.lines.spl.shape == (1, cfg.line_capacity, 2)
+    assert not feats.lines.level.any()
+    assert bool(torch.isfinite(feats.lines.sP).all())
 
 
 def test_rgbd_every_step_from_jax_state(frames):

@@ -1,10 +1,12 @@
 """Where the time of the port's batched point + line VO step goes, on a
 GPU: the default configuration, or with `--dense` the dense single-octave
 line detector (lsd_octaves=1) with the run candidate generator that
-`--generator` names.
+`--generator` names, or with `--edlines` the EDLine detector
+(use_edlines=True) at `--edline-scale`.
 
     python3 tools/profile_torch_step.py [--steps 3] [--dense]
         [--generator all_direction|per_direction]
+        [--edlines [--edline-scale 1|2]]
 
 Renders chip_smoke.py's 8 KITTI-sized lanes, warms the step up, then
 (1) times the step's phases with the host clock around synchronized calls
@@ -20,7 +22,8 @@ and kernel launches per step, and the operators with the most host and
 device time.  `device_busy_share` is the traced device time per step over
 the unprofiled `step_ms` (the profiler's own cost inflates the traced
 step's wall time, `profiled_ms_per_step`).  Prints one JSON object and
-writes it to chiprun_out/profile_torch_step.json.
+writes it to chiprun_out/profile_torch_step.json
+(profile_torch_step_edlines<scale>.json with `--edlines`).
 """
 
 from __future__ import annotations
@@ -54,7 +57,14 @@ def main() -> None:
     ap.add_argument("--generator", default="all_direction",
                     choices=("all_direction", "per_direction"),
                     help="run candidate generator of the dense detector")
+    ap.add_argument("--edlines", action="store_true",
+                    help="profile VOConfig(use_edlines=True)")
+    ap.add_argument("--edline-scale", type=int, default=2,
+                    help="edline_scale with --edlines (2: the quality "
+                    "mode's half-resolution detection)")
     args = ap.parse_args()
+    if args.edlines and args.dense:
+        ap.error("--edlines and --dense name two line detectors")
     if args.generator == "per_direction" and not args.dense:
         ap.error("--generator per_direction needs --dense: the octave "
                  "canvas always takes the all-direction generator")
@@ -69,7 +79,13 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     cam = cam_ops.StereoCamera(fx=718.856, fy=718.856, cx=613.0, cy=185.0,
                                b=0.5372, width=1226, height=370)
-    cfg = VOConfig(lsd_octaves=1) if args.dense else VOConfig()
+    if args.edlines:
+        cfg = VOConfig(use_edlines=True, edline_scale=args.edline_scale)
+        config = f"use_edlines=True, edline_scale={args.edline_scale}"
+    elif args.dense:
+        cfg, config = VOConfig(lsd_octaves=1), "lsd_octaves=1"
+    else:
+        cfg, config = VOConfig(), "default"
     llength = cfg.min_line_length * min(cam.width, cam.height)
     n = 2 + 3 * args.steps + 1
     poses = synthetic.smooth_trajectory(n, speed=0.8, device=dev)
@@ -99,7 +115,7 @@ def main() -> None:
               "track_and_update": 0.0}
 
     def line_half(img_l, img_r):
-        if args.dense:
+        if args.dense or args.edlines:
             return frame_mod.extract_stereo_features(
                 img_l, img_r, state.fast_th, llength, cam,
                 cfg.replace(has_points=False),
@@ -168,7 +184,7 @@ def main() -> None:
     top_cpu = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:12]
     out = {
         "card": smi, "lanes": BATCH, "steps": args.steps,
-        "config": "lsd_octaves=1" if args.dense else "default",
+        "config": config,
         "generator": args.generator,
         "height": cam.height, "width": cam.width,
         "phase_ms_per_step": phases,
@@ -187,7 +203,9 @@ def main() -> None:
                          for e in top_cpu],
     }
     os.makedirs("chiprun_out", exist_ok=True)
-    with open("chiprun_out/profile_torch_step.json", "w") as f:
+    name = (f"profile_torch_step_edlines{args.edline_scale}.json"
+            if args.edlines else "profile_torch_step.json")
+    with open(os.path.join("chiprun_out", name), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
 
