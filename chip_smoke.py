@@ -24,9 +24,10 @@ matcher over an index of the lanes' line descriptors, and the RGB-D step
 on one lane.  Then it writes 40 frames of the textured street canyon
 (utils/world.py) at the KITTI size to disk under build/ and runs the
 dataset CLI over them with windowed bundle adjustment (cli_ba: VOConfig(),
-windows of 4 keyframes, every 3rd frame promoted; then B1-B3 against
-their plain versions on the street's first pair, and the CLI's first 3
-frames on the CPU), and refines one
+windows of 4 keyframes, every 3rd frame promoted, frames read through the
+native prefetching loader; then the loader's 40 pairs against PIL's,
+B1-B3 against their plain versions on the street's first pair, and the
+CLI's first 3 frames on the CPU), and refines one
 window of the first 10 frames with the bf16 product's and with B5's
 Hamming distances (ba_popcount: equal problems and poses, 12 B5 launches,
 the same window on the CPU).  Over the first 6 frames of the 8 lanes it
@@ -36,7 +37,13 @@ steps), and in an NCCL world of one (sharded) the sharded step against
 vo_step_batched, timed in turns, then make_sharded_ba and the sharded
 window refiner on the ba_popcount window against ba_solve and
 refine_window, and tp_match against the dense matcher, all
-`torch.equal`.  Every phase prints one JSON line; any
+`torch.equal`.  Then it checkpoints the 8 lanes' state after 3 of 6
+frames and resumes from the file (checkpoint: the resumed poses
+`torch.equal` to the straight run's, or within the difference of two
+straight runs), and, last, traces one default step with
+utils.profiling (profiling: B1-B3's CUDA kernels in the trace's summary
+as often as their wrappers launched them) before B4's pass split.  Every
+phase prints one JSON line; any
 failed check exits non-zero.  The last three lines are the kernel table
 (with each kernel's launches per phase), the card's name and power
 limit, and the result line.
@@ -109,6 +116,9 @@ PARITY_FRAMES = 3
 DENSE_PARITY_FRAMES = 2
 INDEX_IMAGES = 64           # the matcher phase: 64 x 300 index rows
 LONG_RUN_SIZE = 1280        # B3's long-run masks: 300 hops of (1, 4) fit
+CHECKPOINT_FRAMES = 6       # the checkpoint phase: 6 frames, saved after 3
+CHECKPOINT_AT = 3
+PROFILED_AT = 2             # the profiling phase traces the 3rd step
 
 
 def fail(msg: str) -> None:
@@ -313,6 +323,9 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     from stvo_pl_tpu_torch import cli
     from stvo_pl_tpu_torch.utils import metrics
 
+    from stvo_pl_tpu_torch.native import loader as native
+    from stvo_pl_tpu_torch.utils.dataset import ImageSequence, load_gray
+
     n = len(gt)
     traj = os.path.join(root, "traj.txt")
     argv = [root, "--ba-window", str(BA_WINDOW), "--ba-kf-every",
@@ -327,6 +340,8 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     seconds = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     ba = run.backend
+    require(run.loader == "native", f"cli_ba: the CLI read its frames "
+            f"through the {run.loader} path, not the native loader")
     require(np.isfinite(run.poses).all(), "cli_ba: non-finite poses")
     require(run.poses_refined is not None and len(ba.events) >= 2,
             f"cli_ba: {len(ba.events)} windows refined, expected >= 2")
@@ -341,6 +356,32 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     require(ate < 0.1, f"cli_ba: aligned raw ATE {ate} m")
     require(ref_u <= 1.05 * ate_u, f"cli_ba: refined unaligned ATE {ref_u} "
             f"m against raw {ate_u} m")
+    # the native loader's pairs against PIL's, and the decode time per
+    # pair of each (the loader's with its 2 threads, into pinned memory as
+    # the CLI reads them, and into pageable memory); the frames it held
+    # decoded ahead of the consumer stay within its window
+    seq = ImageSequence(root, device="cuda")
+    native_ms, held = {}, 0
+    for pin in (False, True):
+        t0 = time.perf_counter()
+        with native.PrefetchingLoader(seq.paths_l, seq.paths_r, cam.width,
+                                      cam.height, pin_memory=pin) as ld:
+            pairs = []
+            for pair in ld:
+                pairs.append(pair)
+                held = max(held, ld.buffered()[1])
+        native_ms[pin] = (time.perf_counter() - t0) * 1e3 / n
+    require(held <= native.CAPACITY, f"cli_ba: the loader held {held} "
+            f"decoded frames, more than its window of {native.CAPACITY}")
+    t0 = time.perf_counter()
+    plain = [(load_gray(a), load_gray(b))
+             for a, b in zip(seq.paths_l, seq.paths_r)]
+    pil_ms = (time.perf_counter() - t0) * 1e3 / n
+    require(len(pairs) == len(plain) == n and all(
+        torch.equal(x, torch.from_numpy(y))
+        for pair, ref in zip(pairs, plain) for x, y in zip(pair, ref)),
+        "cli_ba: the native loader's pairs differ from PIL's")
+    del pairs, plain
     # the kernels at the CLI's shapes, on its inputs
     kernel_shapes = street_kernels_equal(root, cfg)
     # the first frames of the same CLI on the CPU (the plain versions)
@@ -370,6 +411,11 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
                 ate_raw_aligned_m=ate, ate_raw_unaligned_m=ate_u,
                 ate_refined_unaligned_m=ref_u, ate_refined_aligned_m=ref_a,
                 launches=launches, kernels_equal_at=kernel_shapes,
+                loader=run.loader, loader_pairs_equal_to_pil=n,
+                decode_ms_per_pair_native=native_ms[True],
+                decode_ms_per_pair_native_pageable=native_ms[False],
+                decode_ms_per_pair_pil=pil_ms,
+                loader_peak_held=held, loader_window=native.CAPACITY,
                 cpu_frames=CLI_PARITY_FRAMES, cpu_seconds=cpu_s,
                 gpu_cpu_max_translation_diff_m=cpu_dt,
                 cli_lines=[l for l in buf.getvalue().splitlines()
@@ -697,6 +743,157 @@ def sharded_phase(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
                     card=smi)
     finally:
         dist.destroy_process_group()
+
+
+def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
+                     smi: str) -> dict:
+    """The default step on the 8 lanes: CHECKPOINT_FRAMES straight frames
+    twice (is the card deterministic from run to run?), then
+    CHECKPOINT_AT frames, save_state, load_state into a fresh template on
+    the card, and the remaining frames.  The resumed poses must be
+    torch.equal to the straight run's, or, where the two straight runs
+    differ, within their difference."""
+    import os
+    from stvo_pl_tpu_torch.parallel import batched
+    from stvo_pl_tpu_torch.utils import checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "chip_smoke_checkpoint")
+
+    def run(state, frames):
+        poses = []
+        for i in frames:
+            state, t = batched.vo_step_batched(
+                state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(),
+                cam, cfg)
+            poses.append(t.Tfw)
+        return state, poses
+
+    t_phase = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    frames = range(CHECKPOINT_FRAMES)
+    straight = [torch.stack(run(batched.init_batched_state(cfg, BATCH),
+                                frames)[1]) for _ in range(2)]
+    state, head = run(batched.init_batched_state(cfg, BATCH),
+                      frames[:CHECKPOINT_AT])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, state, CHECKPOINT_AT, {"lanes": BATCH})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    template = batched.init_batched_state(cfg, BATCH, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded, idx, extra = checkpoint.load_state(path, template)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    require(idx == CHECKPOINT_AT and extra == {"lanes": BATCH},
+            f"checkpoint: meta {idx}, {extra}")
+    flat_a, flat_b = checkpoint.flatten(state), checkpoint.flatten(loaded)
+    require(flat_a.keys() == flat_b.keys() and all(
+        flat_b[k].device == flat_a[k].device
+        and flat_b[k].dtype == flat_a[k].dtype
+        and torch.equal(flat_a[k], flat_b[k]) for k in flat_a),
+        "checkpoint: the loaded state differs from the saved one")
+    _, tail = run(loaded, frames[CHECKPOINT_AT:])
+    resumed = torch.stack(head + tail)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_steps = 3 * CHECKPOINT_FRAMES
+    expected = {"fast_pack": n_steps * cfg.orb_nlevels,
+                "extract_patches": n_steps * cfg.orb_nlevels,
+                "run_pack_multi": n_steps}
+    for k in wrappers:
+        require(launches[k] == expected.get(k, 0), f"checkpoint: {k} "
+                f"launched {launches[k]} times in {n_steps} steps")
+    run_to_run = float((straight[0] - straight[1]).abs().max())
+    resume_diff = float((resumed - straight[0]).abs().max())
+    deterministic = torch.equal(straight[0], straight[1])
+    if deterministic:
+        require(torch.equal(resumed, straight[0]), f"checkpoint: the "
+                f"resumed poses differ by {resume_diff} from the straight "
+                f"run's, which repeats bit for bit")
+    else:
+        require(resume_diff <= run_to_run, f"checkpoint: the resumed poses "
+                f"differ by {resume_diff}, two straight runs by "
+                f"{run_to_run}")
+    require(bool(torch.isfinite(resumed).all()),
+            "checkpoint: non-finite poses")
+    return dict(lanes=BATCH, frames=CHECKPOINT_FRAMES, saved_at=CHECKPOINT_AT,
+                straight_runs_equal=deterministic,
+                held="torch.equal" if deterministic
+                else "within the run-to-run difference",
+                straight_run_to_run_max_diff=run_to_run,
+                resumed_max_diff=resume_diff,
+                bytes=os.path.getsize(os.path.join(path,
+                                                   checkpoint.STATE_FILE)),
+                tensors=len(flat_a), save_ms=save_ms, load_ms=load_ms,
+                launches=launches,
+                seconds=time.perf_counter() - t_phase, card=smi)
+
+
+# B1, B2 and B3's CUDA kernels (csrc/), each launched once per call of its
+# wrapper
+TRACED_KERNELS = {"fast_pack_kernel": "fast_pack",
+                  "extract_kernel": "extract_patches",
+                  "run_planes_kernel": "run_pack_multi",
+                  "chain_pack_kernel": "run_pack_multi"}
+
+
+def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
+                    smi: str) -> dict:
+    """One default step on the 8 lanes (after 2 unprofiled ones) inside
+    utils.profiling.device_trace: summarize_trace's top 15, the device
+    total and the step's wall time; every CUDA kernel of B1, B2 and B3 in
+    the full summary as often as its wrapper counted its launches."""
+    import os
+    import re
+    import shutil
+    from stvo_pl_tpu_torch.parallel import batched
+    from stvo_pl_tpu_torch.utils import profiling
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    logdir = os.path.join(here, "build", "chip_smoke_trace")
+    t_phase = time.perf_counter()
+    shutil.rmtree(logdir, ignore_errors=True)    # one trace: this run's
+    state = batched.init_batched_state(cfg, BATCH)
+    for i in range(PROFILED_AT):
+        state, _ = batched.vo_step_batched(
+            state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(), cam,
+            cfg)
+    torch.cuda.synchronize()
+    img_l = seq_l[:, PROFILED_AT].contiguous()
+    img_r = seq_r[:, PROFILED_AT].contiguous()
+    for w in wrappers.values():
+        w.launches = 0
+    with profiling.device_trace(logdir):
+        with profiling.Timer() as timer:
+            state, telem = batched.vo_step_batched(state, img_l, img_r, cam,
+                                                   cfg)
+            torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    t0 = time.perf_counter()
+    rows = profiling.summarize_trace(logdir, top=None)
+    parse_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(telem.Tfw).all()),
+            "profiling: non-finite poses")
+    counted = {}
+    for kernel, wrapper in TRACED_KERNELS.items():
+        pat = re.compile(rf"(^|[\s:]){kernel}[<(]")
+        n = sum(c for name, _, c in rows if pat.search(name))
+        counted[kernel] = n
+        require(n == launches[wrapper] > 0, f"profiling: {kernel} appears "
+                f"{n} times in the trace, its wrapper {wrapper} launched "
+                f"{launches[wrapper]} times")
+    trace = profiling.newest_trace(logdir)
+    return dict(lanes=BATCH, frame=PROFILED_AT, step_wall_ms=timer.ms,
+                device_total_ms=sum(ms for _, ms, _ in rows),
+                device_events=sum(c for _, _, c in rows),
+                distinct_names=len(rows),
+                top15=[[name[:100], ms, c] for name, ms, c in rows[:15]],
+                kernels_in_trace=counted, launches=launches,
+                trace_bytes=os.path.getsize(trace), parse_seconds=parse_s,
+                seconds=time.perf_counter() - t_phase, card=smi)
 
 
 def main() -> None:
@@ -1422,9 +1619,17 @@ def main() -> None:
     r_sh = sharded_phase(street, cam, cfg, seq_l, seq_r, wrappers, smi)
     emit("sharded", **r_sh)
 
-    # ---- 8. B4 split into its passes, by torch.profiler ----------------
-    # last: after a profiler session in this process the VO phases' steps
-    # read slower on the host clock (PERF.md §5)
+    # ---- 7e. checkpoint and resume on the 8 lanes ----------------------
+    r_ck = checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers, smi)
+    emit("checkpoint", **r_ck)
+
+    # ---- 8. one default step under torch.profiler ----------------------
+    # last, with the B4 split: after a profiler session in this process
+    # the VO phases' steps read slower on the host clock (PERF.md §5)
+    r_prof = profiling_phase(cam, cfg, seq_l, seq_r, wrappers, smi)
+    emit("profiling", **r_prof)
+
+    # ---- 9. B4 split into its passes, by torch.profiler ----------------
     b4_split, b4_dir_split = {}, []
     for m, (dx, dy) in zip(masks, dsteps):
         split = kernel_split_us(lambda: lsd_kernel.run_pack(m, dx, dy))
@@ -1450,6 +1655,7 @@ def main() -> None:
         "vo_edlines_scale1": r_ed["scale1"]["launches"],
         "rgbd_edlines": rgbd_ed_launches,
         "sharded": r_sh["launches"],
+        "checkpoint": r_ck["launches"], "profiling": r_prof["launches"],
         "sharded_refiner": {"hamming_matrix_popc":
                             r_sh["refiner_b5_launches"]["popcount_kernel"]}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),

@@ -12,7 +12,12 @@ decision.  Around the step it carries the application: the dataset CLI
 per frame -> `models/backend.WindowedBA`, the windowed bundle adjustment
 of `parallel/window.py` and `parallel/ba.py` over keyframe windows ->
 refined trajectory, TUM / KITTI files and ATE against ground truth), with
-its plots, HTML scene and the textured street world for test data.
+its plots, HTML scene and the textured street world for test data; the
+native prefetching loader that the CLI reads frames through
+(`native/`: PGM/PNG decode on C++ threads, built by g++ at first use),
+checkpoint / resume of the VO state (`utils/checkpoint.py`) and
+torch.profiler tracing (`utils/profiling.py`).  It has a counterpart of
+every module of the JAX package.
 Entry points run on the GPU unless the caller passes device="cpu"
 (`--device cpu` for the CLI).  The package never imports JAX or the JAX
 package.

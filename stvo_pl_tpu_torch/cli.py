@@ -134,6 +134,8 @@ class CliRun(NamedTuple):
     poses_refined: np.ndarray | None  # BA-refined trajectory, if any window
     stats: list[dict]                 # per-frame err, ms, inliers, kf
     backend: object | None            # the WindowedBA, with --ba-window
+    loader: str                       # how frames were read: "native"
+    #                                   (the C++ prefetcher) or "python"
 
 
 # telemetry fields fetched per frame, packed into one float32 vector
@@ -191,8 +193,9 @@ def run(argv=None) -> CliRun:
     poses = []
     stats = []
     scene_imgs = {}
-    # Software-pipelined loop: the next frame's host->device copy is
-    # queued (pinned memory, non_blocking) right after this frame's step
+    # Software-pipelined loop: frames are decoded ahead by the native
+    # prefetching loader into pinned memory; the next frame's host->device
+    # copy is queued (non_blocking) right after this frame's step
     # is dispatched; each frame's telemetry is packed into one vector and
     # copied back asynchronously, and consumed one frame later, so the
     # host waits on an already-finished frame and makes one transfer per
@@ -252,7 +255,7 @@ def run(argv=None) -> CliRun:
                   f"({int(t_np['n_inliers_ls']):3d})"
                   + ("  [KF]" if i and is_kf else ""))
 
-    it = iter(seq)
+    it = iter(seq.prefetch())
     cur = next(it, None)
     dbuf = _put(cur) if cur is not None else None
     in_flight = None   # frame dispatched but telemetry not yet consumed:
@@ -334,7 +337,7 @@ def run(argv=None) -> CliRun:
         print(f"[stvo] mean {ms.mean():.2f} ms/frame "
               f"({1e3 / ms.mean():.1f} fps) after warmup")
     return CliRun(poses=poses, poses_refined=poses_refined, stats=stats,
-                  backend=backend)
+                  backend=backend, loader=seq.loader)
 
 
 def main(argv=None):

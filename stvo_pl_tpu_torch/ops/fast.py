@@ -10,6 +10,8 @@ Harris ranking included.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -23,6 +25,14 @@ CIRCLE = np.array([
 ], dtype=np.int32)
 
 ARC = 9  # contiguous arc length for FAST-9/16
+
+
+class Keypoints(NamedTuple):
+    """Fixed-capacity keypoint set (one pyramid level, one image)."""
+    uv: torch.Tensor      # [K, 2] float32, level-0 pixel coords
+    score: torch.Tensor   # [K] float32
+    level: torch.Tensor   # [K] int32
+    valid: torch.Tensor   # [K] bool
 
 
 def _bcast(threshold, img: torch.Tensor) -> torch.Tensor:

@@ -173,6 +173,25 @@ def pyramid_levels(img: torch.Tensor, n_levels: int, scale: float,
     return out
 
 
+def build_pyramid(img: torch.Tensor, n_levels: int,
+                  scale_factor: float) -> list[torch.Tensor]:
+    """Image pyramid as a cascade: each level blurs the one above
+    (sigma = 0.5 * scale_factor) and resamples it to round(H / scale^i)
+    (at least 8).  The cascade of the reference's ORB and line pyramids
+    (LSDDetector computeGaussianPyramid); the VO step uses the composed
+    operators of `pyramid_levels` instead."""
+    H, W = img.shape[-2:]
+    levels = [img]
+    cur = img
+    for i in range(1, n_levels):
+        s = scale_factor ** i
+        nh, nw = max(8, int(round(H / s))), max(8, int(round(W / s)))
+        cur = gaussian_blur(cur, sigma=0.5 * scale_factor)
+        cur = resize_bilinear(cur, nh, nw)
+        levels.append(cur)
+    return levels
+
+
 def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:
     """(2r+1)^2 box mean via the separable shift-accumulate, edge
     replicated."""

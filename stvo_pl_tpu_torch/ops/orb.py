@@ -208,6 +208,22 @@ def orient_describe(patches: torch.Tensor, patch_size: int = 31):
     return describe(q, cos_t, sin_t, patch_size=patch_size), cos_t, sin_t
 
 
+def orient_and_describe(img: torch.Tensor, img_blur: torch.Tensor,
+                        uv: torch.Tensor, patch_size: int = 31):
+    """Full per-level descriptor pass: one patch gather per keypoint (the
+    patch kernel on CUDA) from the blurred image, then orientation and
+    rotated BRIEF.  img_blur [H, W] with uv [K, 2] level coords, or
+    [N, H, W] with [N, K, 2]; returns (desc [..., K, 8] int32, cos, sin).
+    `img` is unused: the orientation reads the blurred patch too."""
+    del img
+    single = img_blur.ndim == 2
+    if single:
+        img_blur, uv = img_blur[None], uv[None]
+    out = orient_describe(gather_patches(img_blur, uv),
+                          patch_size=patch_size)
+    return tuple(x[0] for x in out) if single else out
+
+
 def describe_wta(patches: torch.Tensor, cos_t: torch.Tensor,
                  sin_t: torch.Tensor, wta_k: int,
                  patch_size: int = 31) -> torch.Tensor:

@@ -52,6 +52,15 @@ def _sinc_coeffs_from_sq(t2: torch.Tensor):
     return A, B, C
 
 
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """[..., 3] rotation vector -> [..., 3, 3] rotation matrix."""
+    A, B, _ = _sinc_coeffs_from_sq(torch.sum(w * w, dim=-1))
+    W = skew(w)
+    W2 = mm(W, W)
+    return (_eye(3, w) + A[..., None, None] * W
+            + B[..., None, None] * W2)
+
+
 def expmap_se3(x: torch.Tensor) -> torch.Tensor:
     """[..., 6] twist [t, w] -> [..., 4, 4] transform."""
     t, w = x[..., :3], x[..., 3:]

@@ -13,12 +13,16 @@ Images are decoded on the host.  `ImageSequence.frame` returns float32
 tensors: rectified on the sequence's device when the calibration has
 maps, else the decoded host images (in pinned memory when the sequence's
 device is a GPU, so the caller's copy to the device can be asynchronous).
+`ImageSequence.prefetch` yields the same pairs, decoded ahead on the
+native loader's threads (`native/loader.py`) and rectified on the device
+as `frame` rectifies them.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import sys
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -122,6 +126,8 @@ class ImageSequence:
     paths_r: list[str] = field(default_factory=list)
     stamps: list[float] = field(default_factory=list)  # numeric filename key
     #   per retained left frame: frame index (KITTI) or timestamp (TUM/EuRoC)
+    loader: str | None = field(default=None, init=False)  # the path
+    #   prefetch() took, "native" or "python" (PIL); set as it starts
 
     def __post_init__(self):
         import yaml
@@ -160,16 +166,44 @@ class ImageSequence:
         img = torch.from_numpy(load_gray(path))
         return img.pin_memory() if self.device.type == "cuda" else img
 
-    def frame(self, i: int):
-        """Load (and rectify) one stereo pair: float32 [H, W] tensors."""
-        img_l = self._host(self.paths_l[i])
-        img_r = self._host(self.paths_r[i])
+    def _rectify(self, img_l: torch.Tensor, img_r: torch.Tensor):
         if self._maps is None:
             return img_l, img_r
         return tuple(
             cam_ops.rectify_remap(img.to(self.device, non_blocking=True), mp)
             for img, mp in zip((img_l, img_r), self._maps))
 
+    def frame(self, i: int):
+        """Load (and rectify) one stereo pair: float32 [H, W] tensors."""
+        return self._rectify(self._host(self.paths_l[i]),
+                             self._host(self.paths_r[i]))
+
     def __iter__(self):
         for i in range(len(self)):
             yield self.frame(i)
+
+    def prefetch(self, n_threads: int = 2):
+        """Iterate the pairs `__iter__` yields, bit for bit on 8-bit gray
+        images, decoded ahead on the native loader's C++ threads (into
+        pinned tensors on a GPU device) and rectified on the device as
+        `frame` rectifies them.  Falls back to `__iter__`, with a line on
+        stderr, only when the native library cannot be built; a frame that
+        does not decode or has the wrong size raises `IOError`.  RGB files
+        differ: the C++ decoder keeps the float luminance, PIL rounds it
+        (within 1.0)."""
+        from stvo_pl_tpu_torch.native import loader as native
+        cam = self.calib.cam
+        try:
+            ld = native.PrefetchingLoader(
+                self.paths_l, self.paths_r, cam.width, cam.height,
+                n_threads=n_threads, pin_memory=self.device.type == "cuda")
+        except native.NativeUnavailable as e:
+            sys.stderr.write(f"[Dataset] native loader unavailable, "
+                             f"decoding with PIL: {e}\n")
+            self.loader = "python"
+            yield from self
+            return
+        self.loader = "native"
+        with ld:
+            for img_l, img_r in ld:
+                yield self._rectify(img_l, img_r)

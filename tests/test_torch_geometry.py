@@ -57,6 +57,15 @@ def test_exp_log_inverse_adjoint(rng, w_scale):
                                _j(jse3.renormalize_se3, T), atol=5e-4)
 
 
+@pytest.mark.parametrize("w_scale", [1e-6, 0.3, 2.0])
+def test_so3_exp(rng, w_scale):
+    w = twists(rng, 64, 1.0, w_scale)[:, 3:]
+    R = _t(tse3.so3_exp, w)
+    np.testing.assert_allclose(R, _j(jse3.so3_exp, w), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(R, _t(tse3.expmap_se3, np.concatenate(
+        [np.zeros_like(w), w], axis=-1))[:, :3, :3], rtol=0, atol=1e-6)
+
+
 def test_log_near_pi(rng):
     axes = rng.standard_normal((16, 3))
     axes /= np.linalg.norm(axes, axis=-1, keepdims=True)

@@ -4,7 +4,9 @@
 to the JAX package's Pallas kernel `_pallas_extract` run in interpret
 mode, in the 33x33 float32 mode and in the (1, PX) row mode with uint32
 input.  The descriptor tables are equal arrays; identical patches give
-identical descriptor bits; the photometric disparity shift agrees."""
+identical descriptor bits (also through `orient_and_describe`, the gather
+and the description in one call); the photometric disparity shift
+agrees."""
 
 import functools
 
@@ -106,6 +108,33 @@ def test_orient_describe_identical_bits(rng):
         2, -1, 33, 33))
     np.testing.assert_array_equal(tdesc2.reshape(-1, 8).numpy(),
                                   tdesc.numpy())
+
+
+@pytest.mark.parametrize("patch_size", [31, 15])
+def test_orient_and_describe_identical_bits(rng, patch_size):
+    from stvo_pl_tpu.ops import image as jimg
+    N, H, W, K = 2, 90, 120, 40
+    img = (rng.random((N, H, W)) * 255).astype(np.float32)
+    blur = np.stack([np.asarray(jimg.gaussian_blur(jnp.asarray(im), 2.0, 3))
+                     for im in img])
+    uv = rng.uniform([-5, -5], [W + 5, H + 5], (N, K, 2)).astype(np.float32)
+    tout = torb.orient_and_describe(torch.from_numpy(img),
+                                    torch.from_numpy(blur),
+                                    torch.from_numpy(uv), patch_size)
+    assert tout[0].shape == (N, K, 8)
+    for i in range(N):
+        jdesc, jc, js = jorb.orient_and_describe(
+            jnp.asarray(img[i]), jnp.asarray(blur[i]), jnp.asarray(uv[i]),
+            patch_size=patch_size)
+        one = torb.orient_and_describe(torch.from_numpy(img[i]),
+                                       torch.from_numpy(blur[i]),
+                                       torch.from_numpy(uv[i]), patch_size)
+        for a, b in zip(one, tout):
+            assert torch.equal(a, b[i])
+        np.testing.assert_array_equal(one[0].numpy().view(np.uint32),
+                                      np.asarray(jdesc))
+        np.testing.assert_allclose(one[1].numpy(), np.asarray(jc), atol=1e-6)
+        np.testing.assert_allclose(one[2].numpy(), np.asarray(js), atol=1e-6)
 
 
 @pytest.mark.parametrize("wta_k", [3, 4])

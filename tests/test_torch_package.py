@@ -1,6 +1,7 @@
 """Package hygiene of the port: it imports with JAX blocked, no source
-file names JAX or the JAX package, and its entry points refuse to run
-without a GPU unless the caller asks for the CPU."""
+file imports JAX or the JAX package (for a C++ or CUDA source: includes
+nothing of it and names no path of it in a string), and its entry points
+refuse to run without a GPU unless the caller asks for the CPU."""
 
 import os
 import re
@@ -19,7 +20,8 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(ROOT, "stvo_pl_tpu_torch")
 SOURCES = sorted(
     os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs
-    if f.endswith((".py", ".cu"))) + [os.path.join(ROOT, "chip_smoke.py")]
+    if f.endswith((".py", ".cu", ".cuh", ".cpp"))) + [
+        os.path.join(ROOT, "chip_smoke.py")]
 # the port-only worker of tests/test_torch_parallel.py
 WORKER = os.path.join(ROOT, "tools", "torch_dist_worker.py")
 SOURCES.append(WORKER)
@@ -37,6 +39,8 @@ def test_imports_with_jax_blocked():
             "sys.path.insert(0, 'tools'); import torch_dist_worker\n"
             "assert not any(k == 'stvo_pl_tpu' or k.startswith('stvo_pl_tpu.')"
             " for k in sys.modules)\n"
+            "assert not any(k.split('.')[0] in ('orbax', 'tensorflow')"
+            " for k in sys.modules)\n"
             "print('ok')")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -47,6 +51,18 @@ def test_imports_with_jax_blocked():
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_reference_imports(path):
     src = open(path).read()
+    jax_pkg = r"\bstvo_pl_tpu\b(?!_torch)"
+    if not path.endswith(".py"):
+        # a native source is the port's own: its comments may name the TPU
+        # kernel it replaces, but it includes and opens nothing of the JAX
+        # package
+        for line in src.splitlines():
+            s = line.strip()
+            if s.startswith("#include"):
+                assert not re.search(jax_pkg, s), (path, s)
+            for literal in re.findall(r'"[^"]*"', s):
+                assert not re.search(jax_pkg, literal), (path, s)
+        return
     for line in src.splitlines():
         s = line.strip()
         if s.startswith(("import ", "from ")):
@@ -113,10 +129,12 @@ def test_lines_and_bad_inputs_are_refused():
 
 def test_application_modules_are_checked():
     """The windowed BA, the back end, the dataset CLI and its utilities,
-    the EDLine detector and the scale-out modules are among the modules
-    imported with JAX blocked and scanned above, and the multi-process
-    test's worker script among the files scanned."""
+    the EDLine detector, the scale-out modules, the native loader,
+    checkpoints and profiling are among the modules imported with JAX
+    blocked and scanned above, and the multi-process test's worker script
+    and the loader's C++ source among the files scanned."""
     assert WORKER in SOURCES
+    assert os.path.join(PKG, "native", "stvo_loader.cpp") in SOURCES
     for m in ("stvo_pl_tpu_torch.parallel.ba",
               "stvo_pl_tpu_torch.parallel.window",
               "stvo_pl_tpu_torch.ops.edline",
@@ -128,7 +146,10 @@ def test_application_modules_are_checked():
               "stvo_pl_tpu_torch.utils.dataset",
               "stvo_pl_tpu_torch.utils.world",
               "stvo_pl_tpu_torch.utils.visualization",
-              "stvo_pl_tpu_torch.utils.scene_html"):
+              "stvo_pl_tpu_torch.utils.scene_html",
+              "stvo_pl_tpu_torch.native.loader",
+              "stvo_pl_tpu_torch.utils.checkpoint",
+              "stvo_pl_tpu_torch.utils.profiling"):
         assert m in MODULES, m
 
 
