@@ -40,10 +40,28 @@ refine_window, and tp_match against the dense matcher, all
 `torch.equal`.  Then it checkpoints the 8 lanes' state after 3 of 6
 frames and resumes from the file (checkpoint: the resumed poses
 `torch.equal` to the straight run's, or within the difference of two
-straight runs), and, last, traces one default step with
-utils.profiling (profiling: B1-B3's CUDA kernels in the trace's summary
-as often as their wrappers launched them) before B4's pass split.  Every
-phase prints one JSON line; any
+straight runs), and, last, traces one default step and 3 replays of
+the compiled step with utils.profiling (profiling: B1-B3's CUDA kernels
+in the eager trace as often as their wrappers counted them and in the
+replays' as often as the graph's kernel nodes say, the device busy share
+within each traced window), and one replay each of the compiled dense
+per-direction and popcount steps (B4's and B5's kernels as the graphs
+hold them), before B4's pass split.
+
+The compiled programs (the VO step and the window refiner captured as
+CUDA graphs, parallel/compiled.py) run beside their eager forms:
+vo_graph takes the compiled default step over vo's 26 frames in turns
+with the eager step (eager, graph, eager, graph: ms/step, fps, capture
+seconds, the memory its first call keeps), every step's telemetry and
+the final state `torch.equal` to eager and the kernels' counts equal
+(a graph's are its kernel nodes, read from the captured graph through
+the driver API, times its replays), then the compiled
+points-only, dense (both generators), popcount and RGB-D steps against
+their eager runs; vo_edlines holds its compiled step to the eager one
+by its own rule; cli_ba runs the CLI compiled (its default on the card)
+and the same CLI eagerly, poses, refined poses and ATEs equal; ba_graph
+refines the ba_popcount window with the compiled and the eager refiner
+in turns.  Every phase prints one JSON line; any
 failed check exits non-zero.  The last three lines are the kernel table
 (with each kernel's launches per phase), the card's name and power
 limit, and the result line.
@@ -54,6 +72,8 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import math
 import subprocess
@@ -119,6 +139,7 @@ LONG_RUN_SIZE = 1280        # B3's long-run masks: 300 hops of (1, 4) fit
 CHECKPOINT_FRAMES = 6       # the checkpoint phase: 6 frames, saved after 3
 CHECKPOINT_AT = 3
 PROFILED_AT = 2             # the profiling phase traces the 3rd step
+GRAPH_TRACED_REPLAYS = 3    # replays of the compiled step in one trace
 
 
 def fail(msg: str) -> None:
@@ -309,18 +330,49 @@ def street_kernels_equal(root: str, cfg) -> dict:
     return shapes
 
 
+def eager_cli(argv: list):
+    """The CLI with the eager step and window refiner in place of their
+    compiled programs (as it ran before it had them): `cli.run(argv)`
+    with frontend.compile_vo_step and window.compile_refiner patched."""
+    from unittest import mock
+
+    from stvo_pl_tpu_torch import cli
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.parallel import window
+
+    def step(cam, cfg, per_direction=False, device=None):
+        return lambda s, a, b: frontend.vo_step(
+            s, a.to(device, non_blocking=True),
+            b.to(device, non_blocking=True), cam, cfg)
+
+    def refiner(cam, cfg, auto=True, device=None, **kw):
+        if auto:
+            return lambda win: window.refine_window_auto(win, cam, cfg, **kw)
+        return lambda win: window.refine_window(win, cam, cfg, **kw)
+
+    with mock.patch.object(frontend, "compile_vo_step", step), \
+            mock.patch.object(window, "compile_refiner", refiner):
+        return cli.run(argv)
+
+
 def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
-                 smi: str) -> dict:
+                 smi: str, vo_ms_per_step: float) -> dict:
     """The dataset CLI with windowed BA over the street dataset on the
-    card: checks the trajectories and the kernels' counts, then B1-B3
-    against their plain versions on the street's first pair and the first
-    CLI_PARITY_FRAMES frames of the CLI on the CPU; returns the phase's
-    numbers."""
+    card, on its compiled path (the step and the window refiner as CUDA
+    graphs): checks the trajectories and the kernels' counts, and the
+    poses, refined poses and ATEs equal to the same CLI run eagerly; then
+    B1-B3 against their plain versions on the street's first pair and the
+    first CLI_PARITY_FRAMES frames of the CLI on the CPU; returns the
+    phase's numbers."""
     import contextlib
     import io
     import os
 
+    from unittest import mock
+
     from stvo_pl_tpu_torch import cli
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.parallel import window
     from stvo_pl_tpu_torch.utils import metrics
 
     from stvo_pl_tpu_torch.native import loader as native
@@ -331,14 +383,35 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     argv = [root, "--ba-window", str(BA_WINDOW), "--ba-kf-every",
             str(BA_KF_EVERY), "--gt", os.path.join(root, "gt.txt"), "-t",
             traj, "--quiet"]
+    # the compiled programs that the CLI builds, their graphs kept
+    made = []
+
+    def spy(build):
+        return lambda *a, **kw: made.append(build(*a, **kw)) or made[-1]
+
     for w in wrappers.values():
         w.launches = 0
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), kept_graphs(), \
+            mock.patch.object(frontend, "compile_vo_step",
+                              spy(frontend.compile_vo_step)), \
+            mock.patch.object(window, "compile_refiner",
+                              spy(window.compile_refiner)):
         run = cli.run(argv)
     seconds = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    # the wrappers count the warm-up's and the capture's calls; the
+    # replays launch each graph's kernel nodes
+    wrapper_launches = {k: w.launches for k, w in wrappers.items()}
+    graphs = []
+    for c in made:
+        for prog in c.programs.values():
+            nodes = graph_kernels(prog.graph)
+            graphs.append(dict(prog=prog, nodes=wrapper_nodes(nodes),
+                               kernel_nodes=sum(nodes.values())))
+    graph_launches = replayed(graphs, wrappers, [0] * len(graphs))
+    launches = {k: n + graph_launches[k]
+                for k, n in wrapper_launches.items()}
     ba = run.backend
     require(run.loader == "native", f"cli_ba: the CLI read its frames "
             f"through the {run.loader} path, not the native loader")
@@ -356,6 +429,17 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     require(ate < 0.1, f"cli_ba: aligned raw ATE {ate} m")
     require(ref_u <= 1.05 * ate_u, f"cli_ba: refined unaligned ATE {ref_u} "
             f"m against raw {ate_u} m")
+    # the same CLI, eager
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        eager = eager_cli(argv)
+    eager_s = time.perf_counter() - t0
+    require(np.array_equal(eager.poses, run.poses)
+            and eager.poses_refined is not None
+            and np.array_equal(eager.poses_refined, run.poses_refined)
+            and len(eager.backend.events) == len(ba.events),
+            "cli_ba: the compiled CLI's poses differ from the eager CLI's")
+    eager_ms = np.array([s["ms"] for s in eager.stats][2:])
     # the native loader's pairs against PIL's, and the decode time per
     # pair of each (the loader's with its 2 threads, into pinned memory as
     # the CLI reads them, and into pageable memory); the frames it held
@@ -398,8 +482,13 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     # which holds the BA windows refined in it
     ms = np.array([s["ms"] for s in run.stats][2:])
     t_ba = ba.refine_times
+    e_ba = eager.backend.refine_times
     return dict(frames=n, height=cam.height, width=cam.width,
-                seconds=seconds, cli_ms_per_frame=float(ms.mean()),
+                seconds=seconds, compiled=True,
+                cli_ms_per_frame=float(ms.mean()),
+                eager_cli_ms_per_frame=float(eager_ms.mean()),
+                eager_seconds=eager_s, vo_eager_ms_per_step=vo_ms_per_step,
+                eager_ba_s=e_ba, equal_to_eager_cli=True,
                 vo_ms_per_frame=float((ms.sum() - 1e3 * sum(t_ba))
                                       / len(ms)),
                 ba_first_s=t_ba[0],
@@ -410,7 +499,12 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
                 keyframe_windows=[e[0] for e in ba.events],
                 ate_raw_aligned_m=ate, ate_raw_unaligned_m=ate_u,
                 ate_refined_unaligned_m=ref_u, ate_refined_aligned_m=ref_a,
-                launches=launches, kernels_equal_at=kernel_shapes,
+                launches=launches, wrapper_launches=wrapper_launches,
+                graph_launches=graph_launches,
+                programs=[dict(replays=g["prog"].replays,
+                               kernel_nodes=g["kernel_nodes"])
+                          for g in graphs],
+                kernels_equal_at=kernel_shapes,
                 loader=run.loader, loader_pairs_equal_to_pil=n,
                 decode_ms_per_pair_native=native_ms[True],
                 decode_ms_per_pair_native_pageable=native_ms[False],
@@ -420,6 +514,55 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
                 gpu_cpu_max_translation_diff_m=cpu_dt,
                 cli_lines=[l for l in buf.getvalue().splitlines()
                            if l.startswith("[stvo]")], card=smi)
+
+
+def ba_graph_phase(win, cam, cfg, smi: str) -> dict:
+    """The ba_popcount window (B5's route) refined by the compiled
+    refiner (a CUDA graph) and the eager one in turns: poses and every
+    other output `torch.equal`, B5's launches per replayed window (its
+    kernel nodes in the graph) equal to an eager window's, seconds per
+    window of both."""
+    from stvo_pl_tpu_torch.ops import hamming
+    from stvo_pl_tpu_torch.parallel import window
+
+    sync = torch.cuda.synchronize
+    c = cfg.replace(hamming_use_mxu=False)
+    g = first_call(window.compile_refiner(cam, c, n_iters=8), win)
+    refine = g["fn"]
+    n_pairs = BA_WINDOW * (BA_WINDOW - 1) // 2
+    hamming.hamming_matrix_popc.launches = 0
+    since = [g["prog"].replays]
+    got = refine(win)
+    sync()
+    wrapper = hamming.hamming_matrix_popc.launches
+    launches = (wrapper + replayed([g], {"hamming_matrix_popc": None},
+                                   since)["hamming_matrix_popc"])
+    hamming.hamming_matrix_popc.launches = 0
+    want = window.refine_window_auto(win, cam, c, n_iters=8)
+    sync()
+    eager = hamming.hamming_matrix_popc.launches
+    require(wrapper == 0 and launches == eager == 2 * n_pairs,
+            f"ba_graph: B5 launched {launches} times by a replayed window "
+            f"({wrapper} by its wrapper), {eager} by an eager one, "
+            f"expected {2 * n_pairs}")
+    require(same(got, want), "ba_graph: the compiled refiner's window "
+            "differs from the eager refiner's")
+    s_all = {"eager": [], "graph": []}
+    for _ in range(3):                       # eager, graph in turns
+        for name, fn in (("eager", lambda: window.refine_window_auto(
+                win, cam, c, n_iters=8)), ("graph", lambda: refine(win))):
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            s_all[name].append(time.perf_counter() - t0)
+    return dict(K=BA_WINDOW, n_iters=8, s_per_window=s_all,
+                eager_over_graph=min(s_all["eager"]) / min(s_all["graph"]),
+                capture_s=g["capture_s"],
+                first_call_bytes=g["first_call_bytes"],
+                graph_kernel_nodes=g["kernel_nodes"],
+                b5_launches_per_window=launches, poses_equal=True,
+                used_lines=bool(got[3]), card=smi)
 
 
 def first_window(root: str, cam, cfg):
@@ -454,7 +597,7 @@ def first_window(root: str, cam, cfg):
          "frames")
 
 
-def ba_popcount_phase(root: str, cam, cfg, smi: str) -> dict:
+def ba_popcount_phase(win, kf_frames, cam, cfg, smi: str) -> dict:
     """One window of K = 4 keyframes from the first BA_FRAMES frames,
     refined with the bf16 product's Hamming distances and with B5's:
     equal problems and poses, 12 B5 launches, B5 against its plain
@@ -463,7 +606,6 @@ def ba_popcount_phase(root: str, cam, cfg, smi: str) -> dict:
     from stvo_pl_tpu_torch.parallel import window
 
     sync = torch.cuda.synchronize
-    win, kf_frames = first_window(root, cam, cfg)
     routes = {}
     for name, use_mxu in (("bf16_product", True), ("popcount_kernel", False)):
         c = cfg.replace(hamming_use_mxu=use_mxu)
@@ -544,14 +686,18 @@ def ba_popcount_phase(root: str, cam, cfg, smi: str) -> dict:
                 gpu_cpu_max_rotation_diff=dr, cpu_window_s=cpu_s, card=smi)
 
 
-def edlines_phase(drive, check, seq_l, depth0, cam, wrappers: dict,
-                  smi: str):
+def edlines_phase(drive, check, capture, seq_l, depth0, cam,
+                  wrappers: dict, smi: str):
     """The VO step with use_edlines=True at edline_scale 2 (the quality
     mode) and 1 through `drive` (2 + 4 frames of the 8 lanes), each gated
     as the other VO phases with B3 never launched; detect_edlines on the
     card against the CPU on lane 0's first left frame, with the CPU
-    test's tolerance; two RGB-D steps with EDLines on lane 0.  Returns
-    (per-scale results, the RGB-D steps' launches)."""
+    test's tolerance; the compiled step (a CUDA graph) over the same
+    frames, held to the eager run by the same rule (each lane's lines of
+    the last frame, which the detector finds from the image alone), with
+    the VO gates and equal launch counts; two RGB-D steps with EDLines on
+    lane 0.  Returns (per-scale results, the RGB-D steps' launches)."""
+    import types
     from stvo_pl_tpu_torch.config import VOConfig
     from stvo_pl_tpu_torch.models import frame as frame_mod
     from stvo_pl_tpu_torch.models import frontend
@@ -562,10 +708,28 @@ def edlines_phase(drive, check, seq_l, depth0, cam, wrappers: dict,
     r_ed = {}
     for scale in (2, 1):
         cfg_ed = VOConfig(use_edlines=True, edline_scale=scale)
-        _, r = drive(cfg_ed, nf, WARMUP_FRAMES)
+        out_e = {}
+        _, r = drive(cfg_ed, nf, WARMUP_FRAMES, out=out_e)
         name = f"vo_edlines scale {scale}"
         check(name, r, {"fast_pack": nf * cfg_ed.orb_nlevels,
                         "extract_patches": nf * cfg_ed.orb_nlevels})
+        g = capture(cfg_ed)
+        out_g = {}
+        _, r_g = drive(cfg_ed, nf, WARMUP_FRAMES, graph=g, out=out_g)
+        cap_s = g["capture_s"]
+        del g
+        check(f"{name} graph", r_g, r["launches"])
+        seg = lambda ls, b: types.SimpleNamespace(
+            sp=ls.spl[b].cpu().numpy(), ep=ls.epl[b].cpu().numpy(),
+            valid=ls.valid[b].cpu().numpy())
+        g_shared, g_counts = [], []
+        for b in range(seq_l.shape[0]):
+            lg, le = (seg(o["state"].prev_lines, b) for o in (out_g, out_e))
+            g_shared.append(shared_fraction(lg, le))
+            g_counts.append(int(lg.valid.sum()) - int(le.valid.sum()))
+        require(max(abs(c) for c in g_counts) <= 1 and min(g_shared) >= 0.9,
+                f"{name} graph: line counts differ from eager by "
+                f"{g_counts}, shared {g_shared}")
         require(min(r["inliers_ls_lanes"]) > 0, f"{name}: a lane tracked "
                 f"no line: {r['inliers_ls_lanes']}")
         img = seq_l[0, :1].contiguous()
@@ -579,9 +743,15 @@ def edlines_phase(drive, check, seq_l, depth0, cam, wrappers: dict,
         require(abs(n_gpu - n_cpu) <= 1 and shared >= 0.9,
                 f"{name}: detect_edlines on the card finds {n_gpu} lines, "
                 f"on the CPU {n_cpu}, {shared:.3f} shared within 0.5 px")
-        r_ed[f"scale{scale}"] = dict(r, detect_lines_gpu=n_gpu,
-                                     detect_lines_cpu=n_cpu,
-                                     detect_shared_0p5px=shared)
+        r_ed[f"scale{scale}"] = dict(
+            r, detect_lines_gpu=n_gpu, detect_lines_cpu=n_cpu,
+            detect_shared_0p5px=shared,
+            graph=dict(ms_per_step=r_g["ms_per_step"], capture_s=cap_s,
+                       ate_m=r_g["ate_m"], good_frac=r_g["good_frac"],
+                       launches=r_g["launches"], replays=r_g["replays"],
+                       graph_kernel_nodes=r_g["graph_kernel_nodes"],
+                       last_lines_count_diff=g_counts,
+                       last_lines_shared_0p5px=g_shared))
     # RGB-D with EDLines (full resolution, as its front end runs them)
     cfg_rgbd = VOConfig(rgbd_max_depth=200.0, use_edlines=True)
     for w in wrappers.values():
@@ -613,6 +783,13 @@ def _leaves(tree) -> list:
     if isinstance(tree, tuple):
         return [x for f in tree for x in _leaves(f)]
     return [tree]
+
+
+def same(a, b) -> bool:
+    """Two (nested) NamedTuples of tensors `torch.equal` leaf by leaf."""
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
 
 
 def sharded_phase(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
@@ -838,6 +1015,131 @@ TRACED_KERNELS = {"fast_pack_kernel": "fast_pack",
                   "extract_kernel": "extract_patches",
                   "run_planes_kernel": "run_pack_multi",
                   "chain_pack_kernel": "run_pack_multi"}
+# every CUDA kernel of the five wrappers: each wrapper's launch runs each
+# of its kernels once
+CUDA_KERNELS = {**TRACED_KERNELS, "run_plane_kernel": "run_pack",
+                "start_pack_kernel": "run_pack",
+                "hamming_mma_kernel": "hamming_matrix_popc"}
+
+
+@contextlib.contextmanager
+def kept_graphs():
+    """Inside the block every torch.cuda.CUDAGraph is made with
+    keep_graph=True, so that its captured graph can be read
+    (graph_kernels); it is instantiated at its first replay."""
+    base = torch.cuda.CUDAGraph
+
+    class Kept(base):
+        def __new__(cls, keep_graph=True):
+            return super().__new__(cls, True)
+
+        def __init__(self, keep_graph=True):
+            super().__init__(True)
+
+    torch.cuda.CUDAGraph = Kept
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = base
+
+
+class _KernelNodeParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 of the driver API (cuda.h)
+    _fields_ = ([("func", ctypes.c_void_p)]
+                + [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx",
+                                                 "by", "bz", "smem")]
+                + [(f, ctypes.c_void_p) for f in ("params", "extra", "kern",
+                                                   "ctx")])
+
+
+def graph_kernels(graph) -> dict:
+    """The kernel nodes of a captured graph (a torch.cuda.CUDAGraph made
+    inside kept_graphs), child graphs included, counted by the CUDA
+    function's (mangled) name, read from the graph through the driver
+    API: what one replay launches."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    P = ctypes.c_void_p
+
+    def ok(res, what):
+        require(res == 0, f"graph_kernels: {what} returned CUresult {res}")
+
+    counts: dict = {}
+
+    def walk(g):
+        n = ctypes.c_size_t(0)
+        ok(cu.cuGraphGetNodes(P(g), None, ctypes.byref(n)), "cuGraphGetNodes")
+        nodes = (P * n.value)()
+        ok(cu.cuGraphGetNodes(P(g), nodes, ctypes.byref(n)), "cuGraphGetNodes")
+        for node in nodes:
+            kind = ctypes.c_int()
+            ok(cu.cuGraphNodeGetType(P(node), ctypes.byref(kind)),
+               "cuGraphNodeGetType")
+            if kind.value == 3:                     # a child graph
+                child = P()
+                ok(cu.cuGraphChildGraphNodeGetGraph(P(node),
+                                                    ctypes.byref(child)),
+                   "cuGraphChildGraphNodeGetGraph")
+                walk(child.value)
+            elif kind.value == 0:                   # a kernel
+                p = _KernelNodeParams()
+                ok(cu.cuGraphKernelNodeGetParams_v2(P(node), ctypes.byref(p)),
+                   "cuGraphKernelNodeGetParams")
+                name = ctypes.c_char_p()
+                if p.func:
+                    ok(cu.cuFuncGetName(ctypes.byref(name), P(p.func)),
+                       "cuFuncGetName")
+                else:
+                    ok(cu.cuKernelGetName(ctypes.byref(name), P(p.kern)),
+                       "cuKernelGetName")
+                key = name.value.decode()
+                counts[key] = counts.get(key, 0) + 1
+
+    walk(graph.raw_cuda_graph())
+    return counts
+
+
+def wrapper_nodes(counts: dict) -> dict:
+    """graph_kernels' counts summed per kernel wrapper: a wrapper's count
+    is the kernel nodes of its CUDA kernels (by their length-prefixed
+    names in the mangled ones), all of which it launches once a call, so
+    it must be the same for each of them."""
+    per = {}
+    for kernel, wrapper in CUDA_KERNELS.items():
+        tag = f"{len(kernel)}{kernel}"
+        n = sum(c for name, c in counts.items()
+                if name == kernel or tag in name)
+        require(per.setdefault(wrapper, n) == n, f"graph: {wrapper}'s "
+                f"kernels appear {per[wrapper]} and {n} times")
+    return per
+
+
+def first_call(compiled, *args) -> dict:
+    """The first call of a parallel.compiled.Compiled (warm-up, capture
+    and one replay), its graph kept: the call's seconds, the device memory
+    it left allocated (static buffers and the graph's pool), and the
+    graph's kernel nodes (in all, and per kernel wrapper)."""
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with kept_graphs():
+        compiled(*args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    prog, = compiled.programs.values()
+    nodes = graph_kernels(prog.graph)
+    return dict(fn=compiled, prog=prog, capture_s=seconds,
+                first_call_bytes=torch.cuda.memory_allocated() - mem0,
+                kernel_nodes=sum(nodes.values()), nodes=wrapper_nodes(nodes))
+
+
+def replayed(graphs: list, wrappers: dict, since: list) -> dict:
+    """Kernel launches of the graphs' replays since `since` (each graph's
+    replay count then): per wrapper, its kernel nodes times the replays."""
+    out = dict.fromkeys(wrappers, 0)
+    for g, r0 in zip(graphs, since):
+        for k in wrappers:
+            out[k] += g["nodes"][k] * (g["prog"].replays - r0)
+    return out
 
 
 def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
@@ -845,7 +1147,13 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
     """One default step on the 8 lanes (after 2 unprofiled ones) inside
     utils.profiling.device_trace: summarize_trace's top 15, the device
     total and the step's wall time; every CUDA kernel of B1, B2 and B3 in
-    the full summary as often as its wrapper counted its launches."""
+    the full summary as often as its wrapper counted its launches.  Then
+    the compiled step (its graph captured by the first of 2 unprofiled
+    calls): GRAPH_TRACED_REPLAYS replays in one trace, with their device
+    total and wall time, and B1-B3's kernels in it as often as the
+    graph's kernel nodes times the replays; and one traced replay each of
+    the compiled dense per-direction and popcount steps, where B4's and
+    B5's kernels appear as often as the graph holds them."""
     import os
     import re
     import shutil
@@ -877,21 +1185,92 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
     parse_s = time.perf_counter() - t0
     require(bool(torch.isfinite(telem.Tfw).all()),
             "profiling: non-finite poses")
-    counted = {}
-    for kernel, wrapper in TRACED_KERNELS.items():
-        pat = re.compile(rf"(^|[\s:]){kernel}[<(]")
-        n = sum(c for name, _, c in rows if pat.search(name))
-        counted[kernel] = n
-        require(n == launches[wrapper] > 0, f"profiling: {kernel} appears "
-                f"{n} times in the trace, its wrapper {wrapper} launched "
-                f"{launches[wrapper]} times")
+
+    def kernels_in(rows, launches, what, kernels=TRACED_KERNELS):
+        counted = {}
+        for kernel, wrapper in kernels.items():
+            pat = re.compile(rf"(^|[\s:]){kernel}[<(]")
+            n = sum(c for name, _, c in rows if pat.search(name))
+            counted[kernel] = n
+            require(n == launches[wrapper], f"profiling: {kernel} "
+                    f"appears {n} times in the {what} trace, expected "
+                    f"{launches[wrapper]} from {wrapper}")
+        return counted
+
+    require(all(launches[w] > 0 for w in TRACED_KERNELS.values()),
+            f"profiling: a kernel of B1-B3 did not run: {launches}")
+    counted = kernels_in(rows, launches, "eager step's")
     trace = profiling.newest_trace(logdir)
+
+    def traced_replays(g, n, args, tag):
+        """n replays of g's graph in one trace (after one unprofiled
+        replay): (summary rows, wall ms of the traced window)."""
+        tdir = f"{logdir}_{tag}"
+        shutil.rmtree(tdir, ignore_errors=True)
+        g["fn"](*args)
+        torch.cuda.synchronize()
+        with profiling.device_trace(tdir):
+            with profiling.Timer() as t:
+                for _ in range(n):
+                    g["fn"](*args)
+                torch.cuda.synchronize()
+        return profiling.summarize_trace(tdir, top=None), t.ms
+
+    # the compiled default step: its first call captures
+    g = first_call(batched.compile_vo_step(cam, cfg, BATCH),
+                   batched.init_batched_state(cfg, BATCH),
+                   seq_l[:, 0].contiguous(), seq_r[:, 0].contiguous())
+    g_state = batched.init_batched_state(cfg, BATCH)
+    for i in range(PROFILED_AT):
+        g_state, _ = g["fn"](g_state, seq_l[:, i].contiguous(),
+                             seq_r[:, i].contiguous())
+    g_state, g_telem = g["fn"](g_state, img_l, img_r)
+    require(torch.equal(g_telem.Tfw, telem.Tfw) and same(g_state, state),
+            "profiling: the replayed step differs from the eager step")
+    n = GRAPH_TRACED_REPLAYS
+    g_rows, g_ms = traced_replays(g, n, (g_state, img_l, img_r), "graph")
+    g_expected = {k: n * c for k, c in g["nodes"].items()}
+    g_counted = kernels_in(g_rows, g_expected, f"{n} replays'")
+    g_total = sum(ms for _, ms, _ in g_rows)
+    graph = dict(replays=n, window_wall_ms=g_ms,
+                 device_total_ms=g_total,
+                 device_ms_per_replay=g_total / n,
+                 device_events=sum(c for _, _, c in g_rows),
+                 graph_kernel_nodes=g["kernel_nodes"],
+                 distinct_names=len(g_rows),
+                 top15=[[name[:100], ms, c] for name, ms, c in g_rows[:15]],
+                 kernels_in_trace=g_counted, launches=g_expected)
+    del g, g_state
+    # B4 and B5 in replays of the dense per-direction and popcount steps
+    others = {}
+    for tag, run_cfg, per_direction, kernels in (
+            ("dense_per_direction", cfg.replace(lsd_octaves=1), True,
+             ("run_plane_kernel", "start_pack_kernel")),
+            ("popcount", cfg.replace(hamming_use_mxu=False), False,
+             ("hamming_mma_kernel",))):
+        g = first_call(
+            batched.compile_vo_step(cam, run_cfg, BATCH, per_direction),
+            batched.init_batched_state(run_cfg, BATCH),
+            seq_l[:, 0].contiguous(), seq_r[:, 0].contiguous())
+        o_rows, _ = traced_replays(
+            g, 1, (batched.init_batched_state(run_cfg, BATCH), img_l, img_r),
+            tag)
+        mine = {k: CUDA_KERNELS[k] for k in kernels}
+        require(all(g["nodes"][w] > 0 for w in mine.values()),
+                f"profiling: {tag}'s graph holds no {kernels}")
+        others[tag] = dict(
+            kernels_in_trace=kernels_in(o_rows, g["nodes"],
+                                        f"{tag} replay's", mine),
+            launches={w: g["nodes"][w] for w in set(mine.values())},
+            graph_kernel_nodes=g["kernel_nodes"])
+        del g
     return dict(lanes=BATCH, frame=PROFILED_AT, step_wall_ms=timer.ms,
                 device_total_ms=sum(ms for _, ms, _ in rows),
                 device_events=sum(c for _, _, c in rows),
                 distinct_names=len(rows),
                 top15=[[name[:100], ms, c] for name, ms, c in rows[:15]],
-                kernels_in_trace=counted, launches=launches,
+                kernels_in_trace=counted, launches=launches, graph=graph,
+                replays_traced=others,
                 trace_bytes=os.path.getsize(trace), parse_seconds=parse_s,
                 seconds=time.perf_counter() - t_phase, card=smi)
 
@@ -1377,10 +1756,18 @@ def main() -> None:
                 "hamming_matrix_popc": hamming.hamming_matrix_popc}
     line_log = []       # (descriptors, validity) of each step's left lines
 
-    def drive(run_cfg, frames, warmup, per_direction=False, log=None):
+    def drive(run_cfg, frames, warmup, per_direction=False, log=None,
+              graph=None, out=None):
         """`frames` steps of the batched VO from a fresh state; the
-        kernels' counts are set to 0 just before and read just after."""
+        kernels' counts are set to 0 just before and read just after.
+        `graph` (a compiled step from `capture`, its graph captured
+        before) replaces the eager vo_step_batched: its launches are the
+        wrappers' counts (none: a replay runs no wrapper) and its kernel
+        nodes times its replays in the run; `out` (a dict) receives the
+        final state."""
         state = batched.init_batched_state(run_cfg, BATCH)
+        step = graph["fn"] if graph else None
+        since = [graph["prog"].replays] if graph else []
         for w in wrappers.values():
             w.launches = 0
         telems = []
@@ -1388,15 +1775,28 @@ def main() -> None:
             if i == warmup:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-            state, telem = batched.vo_step_batched(
-                state, seq_l[:, i].contiguous(), seq_r[:, i].contiguous(),
-                cam, run_cfg, per_direction=per_direction)
+            img_l, img_r = seq_l[:, i].contiguous(), seq_r[:, i].contiguous()
+            if step is None:
+                state, telem = batched.vo_step_batched(
+                    state, img_l, img_r, cam, run_cfg,
+                    per_direction=per_direction)
+            else:
+                state, telem = step(state, img_l, img_r)
             telems.append(telem)
             if log is not None:
                 log.append((state.prev_lines.desc, state.prev_lines.valid))
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = {k: w.launches for k, w in wrappers.items()}
+        graph_runs = {}
+        if graph:
+            rep = replayed([graph], wrappers, since)
+            graph_runs = dict(wrapper_launches=launches,
+                              replays=graph["prog"].replays - since[0],
+                              graph_kernel_nodes=graph["kernel_nodes"])
+            launches = {k: n + rep[k] for k, n in launches.items()}
+        if out is not None:
+            out["state"] = state
         timed = telems[warmup:]
         est = torch.stack([t.Tfw for t in timed], dim=1).double().cpu().numpy()
         gt = poses[warmup:frames].double().cpu().numpy()
@@ -1411,7 +1811,8 @@ def main() -> None:
             ms_per_step=elapsed / (frames - warmup) * 1e3, card=smi,
             ate_m=float(np.mean(ates)), ate_lanes=ates,
             good_frac=float(good), inliers_pt_lanes=stat("n_inliers_pt"),
-            inliers_ls_lanes=stat("n_inliers_ls"), launches=launches)
+            inliers_ls_lanes=stat("n_inliers_ls"), launches=launches,
+            **graph_runs)
 
     def check(name, r, expected):
         # a kernel that is not named must not have run
@@ -1425,8 +1826,41 @@ def main() -> None:
         require(r["ate_m"] < 0.1, f"{name}: mean ATE {r['ate_m']} m")
         require(r["good_frac"] >= 0.9, f"{name}: good_frac {r['good_frac']}")
 
+    def capture(run_cfg, per_direction=False):
+        """The compiled step for run_cfg on the 8 lanes, its graph
+        captured by its first call, on a throwaway state (first_call)."""
+        return first_call(
+            batched.compile_vo_step(cam, run_cfg, BATCH, per_direction),
+            batched.init_batched_state(run_cfg, BATCH),
+            seq_l[:, 0].contiguous(), seq_r[:, 0].contiguous())
+
+    graph_modes = {}    # vo_graph's shorter modes, each against its eager
+
+    def graph_mode(name, run_cfg, tel_e, out_e, r_e, per_direction=False):
+        """The compiled step over the frames of an eager run of run_cfg:
+        every step's telemetry and the final state `torch.equal` to the
+        eager run's, the kernels' counts equal, the VO gates held."""
+        g = capture(run_cfg, per_direction)
+        out_g = {}
+        tel_g, r_g = drive(run_cfg, r_e["frames"], WARMUP_FRAMES,
+                           per_direction=per_direction, graph=g, out=out_g)
+        check(f"vo_graph {name}", r_g, r_e["launches"])
+        require(len(tel_g) == len(tel_e) and all(
+            same(a, b) for a, b in zip(tel_g, tel_e))
+            and same(out_g["state"], out_e["state"]),
+            f"vo_graph {name}: the graph's steps differ from eager")
+        graph_modes[name] = dict(
+            frames=r_e["frames"], ms_per_step=r_g["ms_per_step"],
+            eager_ms_per_step=r_e["ms_per_step"], capture_s=g["capture_s"],
+            first_call_bytes=g["first_call_bytes"],
+            graph_kernel_nodes=g["kernel_nodes"], replays=r_g["replays"],
+            launches=r_g["launches"], equal_to_eager=True)
+        return r_g
+
     # the points-only path, at a smaller depth
-    _, r_pts = drive(cfg_points, POINTS_ONLY_FRAMES, WARMUP_FRAMES)
+    out_pts = {}
+    tel_pts, r_pts = drive(cfg_points, POINTS_ONLY_FRAMES, WARMUP_FRAMES,
+                           out=out_pts)
     emit("vo_points_only", **r_pts)
     check("vo_points_only", r_pts,
           {"fast_pack": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
@@ -1434,7 +1868,9 @@ def main() -> None:
            "run_pack_multi": 0})
 
     # the main path: VOConfig() with every default, points + lines
-    telems, r_main = drive(cfg, n_frames, WARMUP_FRAMES, log=line_log)
+    out_main = {}
+    telems, r_main = drive(cfg, n_frames, WARMUP_FRAMES, log=line_log,
+                           out=out_main)
     emit("vo", **r_main, points_only_ms_per_step=r_pts["ms_per_step"])
     check("vo", r_main, {"fast_pack": n_frames * cfg.orb_nlevels,
                          "extract_patches": n_frames * cfg.orb_nlevels,
@@ -1442,17 +1878,51 @@ def main() -> None:
     require(min(r_main["inliers_ls_lanes"]) > 0,
             f"vo: a lane tracked no line: {r_main['inliers_ls_lanes']}")
 
+    # ---- 6a. the compiled step (a CUDA graph) in turns with the eager --
+    # eager (the vo run above), graph, eager, graph: no profiler has run
+    # in this process yet
+    g_main = capture(cfg)
+    runs = {"eager": [r_main], "graph": []}
+    for turn in range(2):
+        out_g = {}
+        tel_g, r_g = drive(cfg, n_frames, WARMUP_FRAMES, graph=g_main,
+                           out=out_g)
+        check("vo_graph", r_g, r_main["launches"])
+        require(all(torch.equal(a.Tfw, b.Tfw) for a, b in zip(tel_g, telems))
+                and all(same(a, b) for a, b in zip(tel_g, telems))
+                and same(out_g["state"], out_main["state"]),
+                f"vo_graph: run {turn} of the graph differs from eager")
+        runs["graph"].append(r_g)
+        if turn == 0:
+            runs["eager"].append(drive(cfg, n_frames, WARMUP_FRAMES)[1])
+    cap_main = {k: g_main[k] for k in ("capture_s", "first_call_bytes")}
+    del g_main, tel_g, out_g
+    graph_ms = {k: [r["ms_per_step"] for r in v] for k, v in runs.items()}
+    r_graph = dict(
+        lanes=BATCH, frames=n_frames, timed_frames=n_frames - WARMUP_FRAMES,
+        order="eager, graph, eager, graph", ms_per_step=graph_ms,
+        fps={k: [r["fps"] for r in v] for k, v in runs.items()},
+        eager_over_graph=min(graph_ms["eager"]) / min(graph_ms["graph"]),
+        **cap_main, graph_kernel_nodes=runs["graph"][0]["graph_kernel_nodes"],
+        replays=[r["replays"] for r in runs["graph"]],
+        ate_m=runs["graph"][0]["ate_m"],
+        good_frac=runs["graph"][0]["good_frac"],
+        launches=runs["graph"][0]["launches"], steps_equal_to_eager=True,
+        card=smi)
+
     # the dense single-octave detector with either candidate generator
     nf = POINTS_ONLY_FRAMES
     points_launches = {"fast_pack": nf * cfg.orb_nlevels,
                        "extract_patches": nf * cfg.orb_nlevels}
     cfg_dense = VOConfig(lsd_octaves=1)
-    r_dense = {}
+    r_dense, dense_runs = {}, {}
     for gen_name, per_direction, lsd_launches in (
             ("all_direction", False, {"run_pack_multi": nf}),
             ("per_direction", True, {"run_pack": nf * cfg.lsd_n_dirs})):
+        out_d = {}
         tel_d, r = drive(cfg_dense, nf, WARMUP_FRAMES,
-                         per_direction=per_direction)
+                         per_direction=per_direction, out=out_d)
+        dense_runs[gen_name] = (tel_d, out_d)
         check(f"vo_dense {gen_name}", r, {**points_launches, **lsd_launches})
         require(min(r["inliers_ls_lanes"]) > 0, f"vo_dense {gen_name}: a "
                 f"lane tracked no line: {r['inliers_ls_lanes']}")
@@ -1467,7 +1937,9 @@ def main() -> None:
 
     # the default step with XOR + popcount distances: the same integers
     # as the bf16 product's, so the same poses
-    tel_p, r_popc = drive(VOConfig(hamming_use_mxu=False), nf, WARMUP_FRAMES)
+    cfg_popc = VOConfig(hamming_use_mxu=False)
+    out_p = {}
+    tel_p, r_popc = drive(cfg_popc, nf, WARMUP_FRAMES, out=out_p)
     n_popc = r_popc["launches"]["hamming_matrix_popc"]
     require(n_popc > 0 and n_popc % nf == 0, f"vo_popcount: {n_popc} "
             f"Hamming launches in {nf} steps")
@@ -1539,14 +2011,18 @@ def main() -> None:
     for w in wrappers.values():
         w.launches = 0
     state = frontend.init_state(cfg_rgbd)
-    traj, rgbd_ls, rgbd_pt = [], 0, 0
+    rgbd_tels, rgbd_ls, rgbd_pt = [], 0, 0
+    t0 = time.perf_counter()
     for i in range(nf):
         state, t = frontend.vo_step_rgbd(state, seq_l[0, i].contiguous(),
                                          depth0[i], cam, cfg_rgbd)
-        traj.append(t.Tfw)
+        rgbd_tels.append(t)
         rgbd_ls += int(t.n_inliers_ls)
         rgbd_pt += int(t.n_inliers_pt)
     torch.cuda.synchronize()
+    rgbd_s = time.perf_counter() - t0
+    rgbd_state = state
+    traj = [t.Tfw for t in rgbd_tels]
     rgbd_ate = metrics.ate_rmse(torch.stack(traj).double().cpu().numpy(),
                                 poses[:nf].double().cpu().numpy())
     rgbd_launches = {k: w.launches for k, w in wrappers.items()}
@@ -1560,9 +2036,50 @@ def main() -> None:
             and lsd_kernel.run_pack_multi.launches == nf,
             "rgbd: the step did not go through the FAST and run kernels")
 
-    # ---- 6d. EDLines: the quality mode (edline_scale 2) and full size --
-    r_ed, rgbd_ed_launches = edlines_phase(drive, check, seq_l, depth0, cam,
-                                           wrappers, smi)
+    # ---- 6d. vo_graph's shorter modes, each against its eager run -----
+    graph_mode("points_only", cfg_points, tel_pts, out_pts, r_pts)
+    for gen_name, per_direction in (("all_direction", False),
+                                    ("per_direction", True)):
+        graph_mode(f"dense_{gen_name}", cfg_dense, *dense_runs[gen_name],
+                   r_dense[gen_name], per_direction=per_direction)
+    graph_mode("popcount", cfg_popc, tel_p, out_p, r_popc)
+    # RGB-D: the compiled batched step on one lane against the eager
+    # unbatched steps above
+    g = first_call(batched.compile_vo_step_rgbd(cam, cfg_rgbd, 1),
+                   batched.init_batched_state(cfg_rgbd, 1),
+                   seq_l[:1, 0].contiguous(), depth0[None, 0])
+    step, since = g["fn"], [g["prog"].replays]
+    for w in wrappers.values():
+        w.launches = 0
+    state = batched.init_batched_state(cfg_rgbd, 1)
+    t0 = time.perf_counter()
+    tel_g = []
+    for i in range(nf):
+        state, t = step(state, seq_l[:1, i].contiguous(), depth0[None, i])
+        tel_g.append(frontend._map(lambda x: x[0], t))
+    torch.cuda.synchronize()
+    g_s = time.perf_counter() - t0
+    g_wrappers = {k: w.launches for k, w in wrappers.items()}
+    g_rep = replayed([g], wrappers, since)
+    g_launches = {k: n + g_rep[k] for k, n in g_wrappers.items()}
+    require(all(same(a, b) for a, b in zip(tel_g, rgbd_tels))
+            and same(frontend._map(lambda x: x[0], state), rgbd_state)
+            and g_launches == rgbd_launches,
+            f"vo_graph rgbd: the graph differs from eager (launches "
+            f"{g_launches} against {rgbd_launches})")
+    graph_modes["rgbd"] = dict(
+        frames=nf, lanes=1, ms_per_step=g_s / nf * 1e3,
+        eager_ms_per_step=rgbd_s / nf * 1e3, capture_s=g["capture_s"],
+        first_call_bytes=g["first_call_bytes"],
+        graph_kernel_nodes=g["kernel_nodes"],
+        replays=g["prog"].replays - since[0], wrapper_launches=g_wrappers,
+        launches=g_launches, equal_to_eager=True)
+    del step, g, tel_g
+    emit("vo_graph", **r_graph, modes=graph_modes)
+
+    # ---- 6e. EDLines: the quality mode (edline_scale 2) and full size --
+    r_ed, rgbd_ed_launches = edlines_phase(drive, check, capture, seq_l,
+                                           depth0, cam, wrappers, smi)
 
     # ---- 7. the kernels' path against the plain path -------------------
     # lane 0's first frames through the port on the CPU (plain versions)
@@ -1601,19 +2118,31 @@ def main() -> None:
     gt_street = write_street_dataset(street, cam, CLI_FRAMES,
                                      photos="bundled")
     render_s = time.perf_counter() - t0
-    r_cli = cli_ba_phase(street, gt_street, cam, cfg, wrappers, smi)
-    cli_expected = {"fast_pack": CLI_FRAMES * cfg.orb_nlevels,
-                    "extract_patches": CLI_FRAMES * cfg.orb_nlevels,
-                    "run_pack_multi": CLI_FRAMES}
+    r_cli = cli_ba_phase(street, gt_street, cam, cfg, wrappers, smi,
+                         r_main["ms_per_step"])
+    # the step's wrappers run twice (the warm-up and the capture), its
+    # graph is replayed once a frame
+    per_step = {"fast_pack": cfg.orb_nlevels,
+                "extract_patches": cfg.orb_nlevels, "run_pack_multi": 1}
     for k in wrappers:
-        require(r_cli["launches"][k] == cli_expected.get(k, 0),
-                f"cli_ba: {k} launched {r_cli['launches'][k]} times in "
-                f"{CLI_FRAMES} frames, expected {cli_expected.get(k, 0)}")
+        n = per_step.get(k, 0)
+        require(r_cli["wrapper_launches"][k] == 2 * n
+                and r_cli["graph_launches"][k] == CLI_FRAMES * n,
+                f"cli_ba: {k} launched {r_cli['wrapper_launches'][k]} times "
+                f"by its wrapper and {r_cli['graph_launches'][k]} times by "
+                f"replays in {CLI_FRAMES} frames, expected {2 * n} and "
+                f"{CLI_FRAMES * n}")
     emit("cli_ba", render_seconds=render_s, **r_cli)
 
     # ---- 7c. one BA window, bf16 product against B5 --------------------
-    r_bap = ba_popcount_phase(street, cam, cfg, smi)
+    win, kf_frames = first_window(street, cam, cfg)
+    r_bap = ba_popcount_phase(win, kf_frames, cam, cfg, smi)
     emit("ba_popcount", **r_bap)
+
+    # ---- 7c'. the same window through the compiled refiner --------------
+    r_bag = ba_graph_phase(win, cam, cfg, smi)
+    emit("ba_graph", **r_bag)
+    del win
 
     # ---- 7d. the sharded step, BA and refiner in an NCCL world of one --
     r_sh = sharded_phase(street, cam, cfg, seq_l, seq_r, wrappers, smi)
@@ -1627,7 +2156,18 @@ def main() -> None:
     # last, with the B4 split: after a profiler session in this process
     # the VO phases' steps read slower on the host clock (PERF.md §5)
     r_prof = profiling_phase(cam, cfg, seq_l, seq_r, wrappers, smi)
-    emit("profiling", **r_prof)
+    # device busy: device time over wall time within one traced window
+    # (the eager step; the compiled step's replays), beside the traced
+    # device ms per step and the unprofiled wall ms per step of vo_graph
+    busy = {"eager": r_prof["device_total_ms"] / r_prof["step_wall_ms"],
+            "graph": (r_prof["graph"]["device_total_ms"]
+                      / r_prof["graph"]["window_wall_ms"])}
+    emit("profiling", **r_prof, device_busy_share_traced=busy,
+         device_ms_per_step_traced={
+             "eager": r_prof["device_total_ms"],
+             "graph": r_prof["graph"]["device_ms_per_replay"]},
+         wall_ms_per_step_unprofiled={k: min(v) for k, v in
+                                      graph_ms.items()})
 
     # ---- 9. B4 split into its passes, by torch.profiler ----------------
     b4_split, b4_dir_split = {}, []
@@ -1657,7 +2197,16 @@ def main() -> None:
         "sharded": r_sh["launches"],
         "checkpoint": r_ck["launches"], "profiling": r_prof["launches"],
         "sharded_refiner": {"hamming_matrix_popc":
-                            r_sh["refiner_b5_launches"]["popcount_kernel"]}}
+                            r_sh["refiner_b5_launches"]["popcount_kernel"]},
+        "vo_graph": r_graph["launches"],
+        **{f"vo_graph_{m}": g["launches"] for m, g in graph_modes.items()},
+        "vo_edlines_graph_scale2": r_ed["scale2"]["graph"]["launches"],
+        "vo_edlines_graph_scale1": r_ed["scale1"]["graph"]["launches"],
+        "ba_graph": {"hamming_matrix_popc":
+                     r_bag["b5_launches_per_window"]},
+        "profiling_graph": r_prof["graph"]["launches"],
+        **{f"profiling_graph_{k}": o["launches"]
+           for k, o in r_prof["replays_traced"].items()}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
               (b4, r_dense["per_direction"]), (b5, r_popc)]
     table = [{k: row[k] for k in keys} for row in

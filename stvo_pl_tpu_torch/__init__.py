@@ -17,7 +17,9 @@ native prefetching loader that the CLI reads frames through
 (`native/`: PGM/PNG decode on C++ threads, built by g++ at first use),
 checkpoint / resume of the VO state (`utils/checkpoint.py`) and
 torch.profiler tracing (`utils/profiling.py`).  It has a counterpart of
-every module of the JAX package.
+every module of the JAX package, and of its `jax.jit` entry points: the
+VO step and the BA window captured as CUDA graphs
+(`parallel/compiled.py`), which the entry points use on CUDA.
 Entry points run on the GPU unless the caller passes device="cpu"
 (`--device cpu` for the CLI).  The package never imports JAX or the JAX
 package.

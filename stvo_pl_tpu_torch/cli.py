@@ -194,16 +194,16 @@ def run(argv=None) -> CliRun:
     stats = []
     scene_imgs = {}
     # Software-pipelined loop: frames are decoded ahead by the native
-    # prefetching loader into pinned memory; the next frame's host->device
-    # copy is queued (non_blocking) right after this frame's step
-    # is dispatched; each frame's telemetry is packed into one vector and
+    # prefetching loader into pinned memory.  The step is its captured
+    # program (frontend.compile_vo_step, as the JAX CLI drives its jitted
+    # vo_step; with --device cpu it runs eagerly), which queues the pair's
+    # host->device copy (non_blocking) into its static buffers ahead of
+    # its replay.  Each frame's telemetry is packed into one vector and
     # copied back asynchronously, and consumed one frame later, so the
     # host waits on an already-finished frame and makes one transfer per
     # frame instead of one per field.
     cuda = dev.type == "cuda"
-
-    def _put(pair):
-        return tuple(x.to(dev, non_blocking=True) for x in pair)
+    step = frontend.compile_vo_step(cam, cfg, device=dev)
 
     def _fetch(telem):
         v = _pack(telem)
@@ -257,18 +257,15 @@ def run(argv=None) -> CliRun:
 
     it = iter(seq.prefetch())
     cur = next(it, None)
-    dbuf = _put(cur) if cur is not None else None
     in_flight = None   # frame dispatched but telemetry not yet consumed:
     i = -1             # the sync always lands on an already-finished frame
     img_l = None
     while cur is not None:
         i += 1
         img_l = cur[0]
-        state, telem = frontend.vo_step(state, dbuf[0], dbuf[1], cam, cfg)
+        state, telem = step(state, cur[0], cur[1])
         fetched = _fetch(telem)
         cur = next(it, None)
-        if cur is not None:
-            dbuf = _put(cur)
         if in_flight is not None:
             _consume(in_flight)
         in_flight = (i, fetched, state.prev_points, state.prev_lines, img_l)

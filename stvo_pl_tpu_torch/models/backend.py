@@ -89,6 +89,10 @@ class WindowedBA:
         self.events: list[tuple[list[int], np.ndarray]] = []
         self._frames_since_kf = 0
         self._C = np.eye(4)     # cumulative correction for incoming poses
+        # the refiners are captured programs, built at first use (on CUDA
+        # one graph per window size and structure; on the CPU they run
+        # eagerly); the trust gate and the chaining stay on the host
+        self._refiners: dict = {}
 
     def _snapshot(self, fs):
         return type(fs)(*[x.detach().to(self.device).clone() for x in fs])
@@ -127,22 +131,30 @@ class WindowedBA:
             [(torch.tensor(T_in, dtype=torch.float32, device=self.device),
               pts, ls) for _, T_in, _, pts, ls in self._ring])
 
+    def refiner(self, auto: bool):
+        """`refine(win)`: the captured program
+        (`window.compile_refiner`) of `window.refine_window_auto`
+        (`auto`) or `refine_window` with this back end's settings."""
+        if auto not in self._refiners:
+            kw = dict(n_iters=self.n_iters, multi_anchor=self.multi_anchor)
+            if auto:
+                kw.update(chi2_tol=self.chi2_tol,
+                          max_disagree_t=self.max_disagree_t,
+                          max_disagree_r=self.max_disagree_r)
+            self._refiners[auto] = window_mod.compile_refiner(
+                self.cam, self.cfg, auto=auto, device=self.device, **kw)
+        return self._refiners[auto]
+
     def _refine(self):
         self._sync()
         t0 = time.perf_counter()
         win = self.stack_window()
         if win.lines is not None and self.auto_lines:
-            Tfw_new, _, _, used_lines = window_mod.refine_window_auto(
-                win, self.cam, self.cfg, n_iters=self.n_iters,
-                multi_anchor=self.multi_anchor, chi2_tol=self.chi2_tol,
-                max_disagree_t=self.max_disagree_t,
-                max_disagree_r=self.max_disagree_r)
+            Tfw_new, _, _, used_lines = self.refiner(True)(win)
             if not bool(used_lines):       # the window's one host sync
                 self.n_lines_rejected += 1
         else:
-            Tfw_new, _, _ = window_mod.refine_window(
-                win, self.cam, self.cfg, n_iters=self.n_iters,
-                multi_anchor=self.multi_anchor)
+            Tfw_new, _, _ = self.refiner(False)(win)
         Tfw_new = _host64(Tfw_new)
         self.refine_times.append(time.perf_counter() - t0)
         idxs = [i for i, *_ in self._ring]

@@ -25,13 +25,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import functools
 import math
 
 import numpy as np
 import torch
 
 from stvo_pl_tpu_torch.config import VOConfig
+from stvo_pl_tpu_torch.device import const, device_cache
 from stvo_pl_tpu_torch.models.features import (LineSet, PointSet,
                                                empty_lines, empty_points)
 from stvo_pl_tpu_torch.ops import camera as cam_ops
@@ -258,7 +258,7 @@ def match_stereo_lines(lines_l: lsd.LineSegments, desc_l: torch.Tensor,
         level_l = torch.zeros(sp_l.shape[:-1], dtype=torch.int32,
                               device=sp_l.device)
     sigma2 = torch.pow(
-        torch.tensor(float(cfg.lsd_scale), dtype=dtype, device=sp_l.device),
+        const(float(cfg.lsd_scale), dtype, sp_l.device),
         -2.0 * level_l.to(dtype))
     return LineSet(
         spl=sp_l, epl=ep_l, sdisp=torch.where(ok, disp_s, zero),
@@ -333,9 +333,8 @@ def lines_from_field(fd: DenseField, min_line_length: float, cfg: VOConfig,
     if scale != 1.0:
         H0, W0 = fd.src_hw
         Hs, Ws = fd.mag.shape[-2:]
-        kw = dict(dtype=segs.sp.dtype, device=segs.sp.device)
-        inv = torch.tensor([W0 / Ws, H0 / Hs], **kw)
-        lim = torch.tensor([W0 - 1.0, H0 - 1.0], **kw)
+        inv = const((W0 / Ws, H0 / Hs), segs.sp.dtype, segs.sp.device)
+        lim = const((W0 - 1.0, H0 - 1.0), segs.sp.dtype, segs.sp.device)
 
         def to_src(p):
             return torch.minimum(
@@ -416,7 +415,7 @@ def _octave_layout(shapes: list[tuple], gap: int = 16):
     return regs, (Hc, Wc)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache
 def _interior_mask(regs: tuple, Hc: int, Wc: int, device: torch.device):
     """[Hc, Wc] bool: each region shrunk by 2 px (the zero gap makes the
     2x2 level-line field see a spurious strong edge along every region
@@ -501,7 +500,7 @@ def lines_from_canvas(cv: OctaveCanvas, min_line_length: float,
         k_total=kt)
 
     # region -> octave attribution by midpoint, then region-local coords
-    reg_t = torch.tensor(regs, dtype=torch.int64, device=dev)   # [O, 4]
+    reg_t = const(tuple(regs), torch.int64, dev)                # [O, 4]
     y0s, x0s, Hos, Wos = reg_t[:, 0], reg_t[:, 1], reg_t[:, 2], reg_t[:, 3]
     mid = 0.5 * (segs.sp + segs.ep)
     octv = torch.zeros((N, det_cap), dtype=torch.int64, device=dev)
@@ -523,8 +522,8 @@ def lines_from_canvas(cv: OctaveCanvas, min_line_length: float,
 
     # exact half-pixel-center map to octave-0 coords (integer halving makes
     # the effective per-axis factor differ slightly from 2^o)
-    inv = torch.tensor([W0, H0], dtype=dtype, device=dev) / ext
-    lim = torch.tensor([W0 - 1.0, H0 - 1.0], dtype=dtype, device=dev)
+    inv = const((W0, H0), dtype, dev) / ext
+    lim = const((W0 - 1.0, H0 - 1.0), dtype, dev)
     sp0 = clip((sp_oct + 0.5) * inv - 0.5, lim)
     ep0 = clip((ep_oct + 0.5) * inv - 0.5, lim)
     v = segs.valid & in_any
@@ -637,9 +636,8 @@ def detect_edlines_stereo(im: torch.Tensor, min_line_length: float,
         smooth_sigma=0.0 if f > 1 else 1.0,
         node_capacity=min(16384, max(2048, (Hd * Wd) // 14)))
     if f > 1:
-        kw = dict(dtype=segs.sp.dtype, device=segs.sp.device)
-        inv = torch.tensor([W0 / Wd, H0 / Hd], **kw)
-        lim = torch.tensor([W0 - 1.0, H0 - 1.0], **kw)
+        inv = const((W0 / Wd, H0 / Hd), segs.sp.dtype, segs.sp.device)
+        lim = const((W0 - 1.0, H0 - 1.0), segs.sp.dtype, segs.sp.device)
 
         def to0(p):
             return torch.minimum(torch.clamp((p + 0.5) * inv - 0.5, min=0.0),

@@ -9,7 +9,9 @@ adaptive-FAST controller and the keyframe hooks.  Every field of VOState
 carries the lane axis first.  `vo_step` runs one unbatched lane and
 `vo_scan` a whole sequence as a Python loop; `step_lanes_rgbd` /
 `vo_step_rgbd` take an intensity image and a registered depth map in place
-of the stereo pair.  `per_direction` (an argument, not a config field)
+of the stereo pair.  `compile_vo_step` is the one-lane step captured as a
+CUDA graph (parallel/compiled.py), the counterpart of the JAX package's
+jitted `vo_step`; `vo_scan` runs through it.  `per_direction` (an argument, not a config field)
 selects the run candidate generator of the dense single-octave line
 detector, see ops/lsd.py.
 """
@@ -30,6 +32,7 @@ from stvo_pl_tpu_torch.models.features import (LineMatches, LineSet,
                                                empty_lines, empty_points)
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import linalg, matching, se3
+from stvo_pl_tpu_torch.parallel.compiled import Compiled
 
 _sel = optimizer._sel
 
@@ -330,14 +333,27 @@ def vo_step_rgbd(state: VOState, img: torch.Tensor, depth: torch.Tensor,
     return _map(lambda x: x[0], s), _map(lambda x: x[0], t)
 
 
+def compile_vo_step(cam: cam_ops.StereoCamera, cfg: VOConfig,
+                    per_direction: bool = False, device=None) -> Compiled:
+    """`vo_step` as a captured program on `device` ("cuda" unless the
+    caller asks for the CPU): `step(state, img_l, img_r) -> (state,
+    telemetry)`, equal to `vo_step` bit for bit; the returned tensors
+    belong to the caller (parallel/compiled.py)."""
+    def step(state, img_l, img_r):
+        return vo_step(state, img_l, img_r, cam, cfg,
+                       per_direction=per_direction)
+    return Compiled(step, device)
+
+
 def vo_scan(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
             cam: cam_ops.StereoCamera, cfg: VOConfig,
             per_direction: bool = False):
-    """A whole sequence [T, H, W] through `vo_step`; telemetry stacked over
-    frames."""
+    """A whole sequence [T, H, W] through `vo_step`'s captured program
+    (built for this call; on the CPU it runs eagerly); telemetry stacked
+    over frames."""
+    step = compile_vo_step(cam, cfg, per_direction, state.Tfw.device)
     telems = []
     for i in range(imgs_l.shape[0]):
-        state, t = vo_step(state, imgs_l[i], imgs_r[i], cam, cfg,
-                           per_direction=per_direction)
+        state, t = step(state, imgs_l[i], imgs_r[i])
         telems.append(t)
     return state, StepTelemetry(*[torch.stack(f) for f in zip(*telems)])

@@ -10,7 +10,9 @@
 //     kept for parity with the JAX package's loader: the port's dataset
 //     rectifies on the device and passes no maps, so nothing calls it);
 //   * a prefetch thread pool that decodes at most `capacity` frames ahead
-//     of the consumer, emitted in sequence order.
+//     of the consumer, emitted in sequence order; its threads are named
+//     "stvo-loader" (what /proc/<pid>/task/<tid>/comm reads), so a
+//     process can tell them from its other threads.
 //
 // Every decoded image must be width x height: a frame whose file does not
 // decode, or decodes to another size, is reported to the caller as an
@@ -34,6 +36,7 @@
 #include <thread>
 #include <vector>
 
+#include <pthread.h>
 #include <zlib.h>
 
 namespace {
@@ -360,8 +363,11 @@ void* stvo_loader_open(const char** paths_l, const char** paths_r, int n,
     ld->map_r.assign(map_r, map_r + 2l * width * height);
   }
   int nt = n_threads > 0 ? n_threads : 2;
-  for (int i = 0; i < nt; i++)
+  for (int i = 0; i < nt; i++) {
     ld->workers.emplace_back([ld] { ld->worker(); });
+    // named here, before open returns, not by the thread itself
+    pthread_setname_np(ld->workers.back().native_handle(), "stvo-loader");
+  }
   return ld;
 }
 

@@ -40,23 +40,24 @@ import math
 import numpy as np
 import torch
 
+from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops.image import gaussian_blur, sobel
 from stvo_pl_tpu_torch.ops.lsd import LineSegments, top_k
 
-_N8 = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1)]
+_N8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 
 
 def _shift(a: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
     """Shift [..., H, W] by (dy, dx); out-of-range filled."""
     out = torch.roll(a, (dy, dx), dims=(-2, -1))
     if dy > 0:
-        out[..., :dy, :] = fill
+        out[..., :dy, :].fill_(fill)
     elif dy < 0:
-        out[..., dy:, :] = fill
+        out[..., dy:, :].fill_(fill)
     if dx > 0:
-        out[..., :, :dx] = fill
+        out[..., :, :dx].fill_(fill)
     elif dx < 0:
-        out[..., :, dx:] = fill
+        out[..., :, dx:].fill_(fill)
     return out
 
 
@@ -196,7 +197,7 @@ def detect_edlines(img: torch.Tensor, min_length: float,
     # neighbour slots + connection gates (orientation similarity); the
     # tolerance in float32 as the reference's deg2rad computes it
     tol = float(np.float32(ang_tol_deg) * np.float32(np.pi / 180.0))
-    d8 = torch.tensor(_N8, device=dev)               # [8, (dy, dx)]
+    d8 = const(_N8, torch.int64, dev)                # [8, (dy, dx)]
     qx = nx[..., None] + d8[:, 1]
     qy = ny[..., None] + d8[:, 0]                    # [N, M, 8]
     inb = (qx >= 0) & (qx < W) & (qy >= 0) & (qy < H)

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops.image import box_filter, maxpool3, sobel
 
 # 16-pixel Bresenham circle of radius 3, in contiguous angular order: (dy, dx)
@@ -37,7 +38,9 @@ class Keypoints(NamedTuple):
 
 def _bcast(threshold, img: torch.Tensor) -> torch.Tensor:
     """Per-image threshold [N] (or scalar) -> broadcastable to [N, H, W]."""
-    th = torch.as_tensor(threshold, dtype=img.dtype, device=img.device)
+    th = (torch.as_tensor(threshold, dtype=img.dtype, device=img.device)
+          if isinstance(threshold, torch.Tensor)
+          else const(float(threshold), img.dtype, img.device))
     return th.reshape(th.shape + (1, 1)) if th.ndim else th
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from stvo_pl_tpu_torch import build
+from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops.fast import CIRCLE, fast_response
 
 STRIP = 40     # output rows come in multiples of the reference's strip
@@ -37,7 +38,7 @@ def packed_shape(H: int, W: int) -> tuple[int, int]:
 
 
 def _c(v: float, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=_F32, device=device)
+    return const(float(v), _F32, device)
 
 
 def fast_pack_plain(img: torch.Tensor, edge: int) -> torch.Tensor:
@@ -171,7 +172,9 @@ def select_from_packed(packed: torch.Tensor, capacity: int,
         # a Python float multiplies a float32 tensor as float32(1/31)
         xs = xs + ((top & 31).to(_F32) * (1.0 / 31.0) - 0.5)
         ys = ys + (((top >> 5) & 31).to(_F32) * (1.0 / 31.0) - 0.5)
-    th = torch.as_tensor(threshold, dtype=_F32, device=packed.device)
+    th = (torch.as_tensor(threshold, dtype=_F32, device=packed.device)
+          if isinstance(threshold, torch.Tensor)
+          else const(float(threshold), _F32, packed.device))
     th = th.reshape(-1, 1) if th.ndim else th
     valid = (top > 0) & (score > th)
     uv = torch.stack([xs, ys], dim=-1)

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stvo_pl_tpu_torch.device import device_cache
+
 
 def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
     if radius is None:
@@ -127,7 +129,7 @@ def _pyramid_matrices(H: int, W: int, n_levels: int, scale: float,
     return mats
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def _device_pyramid(H: int, W: int, n_levels: int, scale: float,
                     blur_sigma: float, device: torch.device):
     return [(torch.from_numpy(My.T.copy()).to(device),
@@ -136,7 +138,7 @@ def _device_pyramid(H: int, W: int, n_levels: int, scale: float,
                                             blur_sigma)]
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache
 def _device_resize(H: int, W: int, out_h: int, out_w: int, blur_sigma: float,
                    device: torch.device):
     """(My^T, Mx) of one resize on `device`, uploaded once."""

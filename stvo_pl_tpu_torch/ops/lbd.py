@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stvo_pl_tpu_torch.device import device_cache
 from stvo_pl_tpu_torch.ops.lsd import linspace01, norm2
 from stvo_pl_tpu_torch.ops.orb import _pack_words
 
@@ -72,6 +73,15 @@ _BAND_A = _band_row_assignment()     # [B, N_TAPS] float32
 _PAIRS = _binarization_pairs()       # [32, 2]
 
 
+@device_cache
+def _tables(device: torch.device):
+    """(tap offsets, band rows, binarization pairs) on `device`, uploaded
+    once (constants of the step)."""
+    return (torch.from_numpy(_TAP_OFF.astype(np.float32)).to(device),
+            torch.from_numpy(_BAND_A).to(device),
+            torch.from_numpy(_PAIRS).to(device).long())
+
+
 def _tap_grid(sp: torch.Tensor, ep: torch.Tensor,
               n_samples: int = N_SAMPLES):
     """Rotated line-support sampling grid for endpoints [..., K, 2].
@@ -83,7 +93,7 @@ def _tap_grid(sp: torch.Tensor, ep: torch.Tensor,
     do = torch.stack([-dl[..., 1], dl[..., 0]], dim=-1)
     t = linspace01(n_samples, sp.device)
     along = sp[..., None, :] + d[..., None, :] * t[:, None]      # [.., S, 2]
-    off = torch.from_numpy(_TAP_OFF.astype(np.float32)).to(sp.device)
+    off = _tables(sp.device)[0]
     pts = (along[..., :, None, :]
            + do[..., None, None, :] * off[:, None])           # [.., S, R, 2]
     return pts[..., 0], pts[..., 1], dl, do
@@ -159,7 +169,7 @@ def _lbd_from_taps(sg: torch.Tensor, dl: torch.Tensor, do: torch.Tensor):
                       torch.clamp(g_dl, min=0.0), torch.clamp(-g_dl, min=0.0)],
                      dim=-1)
     # fold taps into bands with Gaussian weights: [N, K, S, B, 4]
-    band_a = torch.from_numpy(_BAND_A).to(sg.device)
+    band_a = _tables(sg.device)[1]
     band_vals = torch.matmul(band_a, ch)
 
     n_s = band_vals.shape[-3]
@@ -178,7 +188,7 @@ def _lbd_from_taps(sg: torch.Tensor, dl: torch.Tensor, do: torch.Tensor):
     desc_f = per_band.reshape(lead + (DESC_F,))
 
     # binarize: 32 band pairs x 8 dims (reference binaryConversion, :401-412)
-    pairs = torch.from_numpy(_PAIRS).to(sg.device).long()
+    pairs = _tables(sg.device)[2]
     a = per_band[..., pairs[:, 0], :]                       # [N, K, 32, 8]
     b = per_band[..., pairs[:, 1], :]
     bits = (a > b).reshape(lead + (8, 32))

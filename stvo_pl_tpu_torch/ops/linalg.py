@@ -19,9 +19,9 @@ that the success flags follow the same rules and no call waits on the host
 
 from __future__ import annotations
 
-import functools
-
 import torch
+
+from stvo_pl_tpu_torch.device import device_cache
 
 _N = 6
 JACOBI_SWEEPS = 8
@@ -121,7 +121,7 @@ def _round_robin_pairs() -> list[tuple[list[int], list[int]]]:
 _ROUNDS = _round_robin_pairs()
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache
 def _round_index(device: torch.device):
     return [(torch.tensor(ps, device=device), torch.tensor(qs, device=device))
             for ps, qs in _ROUNDS]

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stvo_pl_tpu_torch.device import const, device_cache
 from stvo_pl_tpu_torch.ops import lsd_kernel
 from stvo_pl_tpu_torch.ops.image import gaussian_blur
 
@@ -79,9 +80,11 @@ def norm2(d: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
 
 
-def linspace01(n: int, device) -> torch.Tensor:
+@device_cache
+def linspace01(n: int, device: torch.device) -> torch.Tensor:
     """n float32 samples of [0, 1] as the reference's linspace rounds them:
-    i / (n - 1) in float32, the endpoint exact."""
+    i / (n - 1) in float32, the endpoint exact; built once per device (a
+    constant of the step)."""
     if n == 1:
         return torch.zeros(1, device=device)
     t = np.arange(n - 1, dtype=np.float32) / np.float32(n - 1)
@@ -167,12 +170,10 @@ def _candidates_from_packed_multi(packed: torch.Tensor, steps, k_total: int,
     idx = 63 - (top % 64)
     ys = ((rem // Wt) * tile + idx // 8).to(torch.float32)
     xs = ((rem % Wt) * tile + idx % 8).to(torch.float32)
-    hq = torch.tensor([lsd_kernel._hop_q(sx, sy) for sx, sy in steps],
-                      dtype=torch.int32, device=dev)[d]
-    sx = torch.tensor([s[0] for s in steps], dtype=torch.float32,
-                      device=dev)[d]
-    sy = torch.tensor([s[1] for s in steps], dtype=torch.float32,
-                      device=dev)[d]
+    hq = const(tuple(lsd_kernel._hop_q(sx, sy) for sx, sy in steps),
+               torch.int32, dev)[d]
+    sx = const(tuple(s[0] for s in steps), torch.float32, dev)[d]
+    sy = const(tuple(s[1] for s in steps), torch.float32, dev)[d]
     hops = (fm // hq).to(torch.float32)
     length = fm.to(torch.float32) * (1.0 / 16.0)
     score = torch.where(length >= _f32(min_len), length,
@@ -207,9 +208,9 @@ def _candidates_from_packed(pooled: torch.Tensor, steps, k_per_dir: int,
     idx = 63 - (top % 64)
     ys = ((pos // Wt) * tile + idx // 8).to(torch.float32)
     xs = ((pos % Wt) * tile + idx % 8).to(torch.float32)
-    col = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)[:, None]
-    hop = col([math.hypot(dx, dy) for dx, dy in steps])
-    sx, sy = col([s[0] for s in steps]), col([s[1] for s in steps])
+    col = lambda v: const(tuple(v), torch.float32, dev)[:, None]
+    hop = col(math.hypot(dx, dy) for dx, dy in steps)
+    sx, sy = col(s[0] for s in steps), col(s[1] for s in steps)
     hops = f.to(torch.float32)
     length = hops * hop
     score = torch.where(length >= _f32(min_len), length,
@@ -490,7 +491,7 @@ def segments_from_runs(ang: torch.Tensor, mag: torch.Tensor,
     v = _suppress_duplicates(sp, ep, resp, v, perp_tol=4.0, overlap_tol=0.4)
 
     # clamp to image bounds, final filters, re-rank by (refined) length
-    lim = torch.tensor([W - 1.0, H - 1.0], dtype=sp.dtype, device=sp.device)
+    lim = const((W - 1.0, H - 1.0), sp.dtype, sp.device)
     sp = torch.minimum(torch.clamp(sp, min=0.0), lim)
     ep = torch.minimum(torch.clamp(ep, min=0.0), lim)
     length = norm2(ep - sp)

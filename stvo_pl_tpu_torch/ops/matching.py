@@ -13,6 +13,7 @@ from typing import NamedTuple
 
 import torch
 
+from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops import hamming
 
 BIG = 2 ** 30
@@ -116,8 +117,7 @@ def stereo_line_window_mask(sp_l, ep_l, sp_r, ep_r, inv_w, inv_h,
     """Left lines x right lines candidate mask: a right line is a
     candidate when either left endpoint lies within the window radius of
     it in grid-cell space."""
-    scale = torch.tensor([inv_w, inv_h], dtype=sp_l.dtype,
-                         device=sp_l.device)
+    scale = const((inv_w, inv_h), sp_l.dtype, sp_l.device)
     d_s = point_seg_dist2(sp_l * scale, sp_r * scale, ep_r * scale)
     d_e = point_seg_dist2(ep_l * scale, sp_r * scale, ep_r * scale)
     r2 = float((ws + 1) ** 2)

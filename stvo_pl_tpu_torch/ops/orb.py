@@ -22,6 +22,7 @@ import functools
 import numpy as np
 import torch
 
+from stvo_pl_tpu_torch.device import device_cache
 from stvo_pl_tpu_torch.ops.patches import extract_patches
 
 PATCH_R = 16          # gathered patch radius -> 33x33 patches
@@ -117,7 +118,7 @@ def _matmul_dtype(device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache
 def _device_table(kind: str, patch_size: int, wta_k: int,
                   device: torch.device) -> torch.Tensor:
     M = (_binned_test_matrix(patch_size) if kind == "test"
@@ -126,7 +127,7 @@ def _device_table(kind: str, patch_size: int, wta_k: int,
                                   dtype=_matmul_dtype(device))
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache
 def _ori_weights(device: torch.device):
     return (torch.from_numpy(_ORI_X).to(device),
             torch.from_numpy(_ORI_Y).to(device))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from stvo_pl_tpu_torch.device import const
+
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[..., n, k] @ [..., k, m] in full float32 (elementwise products and
@@ -24,9 +26,8 @@ def _eye(n: int, like: torch.Tensor) -> torch.Tensor:
 
 def _homog(top: torch.Tensor) -> torch.Tensor:
     """[..., 3, 4] -> [..., 4, 4] with bottom row [0, 0, 0, 1]."""
-    bottom = torch.zeros_like(top[..., :1, :])
-    bottom[..., 0, 3] = 1.0
-    return torch.cat([top, bottom], dim=-2)
+    bottom = const(((0.0, 0.0, 0.0, 1.0),), top.dtype, top.device)
+    return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
 def skew(v: torch.Tensor) -> torch.Tensor:

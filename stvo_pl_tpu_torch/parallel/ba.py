@@ -264,18 +264,20 @@ def _apply_pose_update(poses_cw, dxi):
 
 
 def _solve_reduced(S, b, damping, K):
-    """Solve the gauge-fixed reduced camera system for the pose update."""
+    """Solve the gauge-fixed reduced camera system for the pose update.
+    No host sync: `solve_ex` leaves its status on the device (a singular
+    system gives non-finite poses, as on the JAX package's device), so
+    the solve can be captured in a CUDA graph."""
     n = 6 * K
-    S2 = S.reshape(n, n) + damping * torch.eye(n, dtype=S.dtype,
-                                                device=S.device)
+    eye = torch.eye(n, dtype=S.dtype, device=S.device)
+    S2 = S.reshape(n, n) + damping * eye
     # gauge fix: pin pose 0 by clearing its rows/cols and setting identity
-    S2[:6, :] = 0.0
-    S2[:, :6] = 0.0
-    g = torch.arange(6, device=S.device)
-    S2[g, g] = 1.0
-    b2 = b.reshape(-1).clone()
-    b2[:6] = 0.0
-    return torch.linalg.solve(S2, b2).reshape(K, 6)
+    idx = torch.arange(n, device=S.device)
+    pin = idx < 6
+    S2 = torch.where(pin[:, None] | pin[None, :], eye, S2)
+    b2 = torch.where(pin, torch.zeros_like(pin, dtype=b.dtype),
+                     b.reshape(-1))
+    return torch.linalg.solve_ex(S2, b2).result.reshape(K, 6)
 
 
 def _back_substitute(aux, dxi, X, mask):

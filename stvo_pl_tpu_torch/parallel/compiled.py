@@ -1,0 +1,135 @@
+"""Captured programs: the port's counterpart of the JAX package's `jax.jit`
+entry points (`vo_step_batched` with `donate_argnums=(0,)`, `vo_step`,
+`refine_window_auto`, ...).
+
+    prog = Compiled(fn, device)          # fn: tensors (and NamedTuples of
+    out = prog(*args)                    # them, None allowed) -> the same
+
+On CUDA the first call for a static key (the structure, shapes, dtypes
+and devices of the arguments; everything else `fn` closes over, as jit's
+static arguments) copies the arguments into static buffers, runs `fn`
+once on a side stream (the warm-up: it loads the kernel library, builds
+the cached device constants, creates the cuBLAS / cuSOLVER handles and
+sets the kernels' shared-memory attributes) and captures one more run as
+a CUDA graph into the graph's private memory pool.  Every call then
+copies its arguments in, replays the graph and returns fresh clones of
+the outputs, so what a call returns belongs to the caller and no later
+call changes it; the arguments themselves are never written (the input
+state is free to reuse, which is all that jit's donation promises).  A
+capture or replay that fails raises: there is no eager fallback on the
+card.
+
+On the CPU, where there is no graph and only because the caller asked
+for the CPU, the same object runs `fn` eagerly on the same static
+buffers and returns clones in the same way.
+
+Kernel launches.  The kernel wrappers count their launches in Python
+(`fast_pack.launches`, ...), where they launch: the warm-up's and the
+capture's calls count, and a replay, which runs no Python, adds nothing.
+`_Program.replays` counts the replays; the captured graph's kernel nodes
+say what each one launches.
+
+Constants.  A graph reads the device constants of its capture by address
+and holds no reference to them, so the program holds every value of the
+per-device caches (`device.device_cache`) that its first run read.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from stvo_pl_tpu_torch.device import owning, resolve_device
+
+
+def _flatten(tree, leaves: list):
+    """Spec of a tree of tensors, (Named)tuples and None; appends the
+    tensors to `leaves` in order."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return "T"
+    if isinstance(tree, tuple):
+        return (type(tree), tuple(_flatten(t, leaves) for t in tree))
+    raise TypeError(f"Compiled takes tensors, tuples of them and None, not "
+                    f"{type(tree).__name__}")
+
+
+def _unflatten(spec, leaves):
+    if spec is None:
+        return None
+    if spec == "T":
+        return next(leaves)
+    kind, children = spec
+    items = [_unflatten(c, leaves) for c in children]
+    return kind(*items) if hasattr(kind, "_fields") else kind(items)
+
+
+class _Program:
+    """One program: static buffers, on CUDA the graph, and the device
+    constants its first run read (`owned`)."""
+
+    def __init__(self, owner: "Compiled", spec, leaves):
+        self.owner = owner
+        self.static_in = [torch.empty_like(x, device=owner.device)
+                          for x in leaves]
+        self.static_args = _unflatten(spec, iter(self.static_in))
+        self.graph = None
+        self.replays = 0
+        self.owned: dict = {}
+        self.out_spec = self.out_leaves = None
+
+    def _keep(self, out):
+        self.out_leaves = []
+        self.out_spec = _flatten(out, self.out_leaves)
+
+    def capture(self):
+        """Warm up on a side stream, then capture one run of fn."""
+        fn, args = self.owner.fn, self.static_args
+        with torch.cuda.device(self.owner.device), owning(self.owned):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                fn(*args)                               # the warm-up
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = fn(*args)
+        self._keep(out)
+        self.graph = graph
+
+    def run(self, leaves):
+        for s, x in zip(self.static_in, leaves):
+            s.copy_(x, non_blocking=True)
+        if self.graph is not None:
+            self.graph.replay()
+            self.replays += 1
+        else:
+            with owning(self.owned):
+                self._keep(self.owner.fn(*self.static_args))
+        return _unflatten(self.out_spec,
+                          iter([t.clone() for t in self.out_leaves]))
+
+
+class Compiled:
+    """`fn` as a captured program on `device` ("cuda" unless the caller
+    asks for the CPU); see the module's docstring."""
+
+    def __init__(self, fn, device=None):
+        self.fn = fn
+        self.device = resolve_device(device)
+        self.programs: dict = {}    # static key -> _Program
+
+    def __call__(self, *args):
+        leaves = []
+        spec = _flatten(args, leaves)
+        key = spec, tuple((tuple(x.shape), x.dtype) for x in leaves)
+        prog = self.programs.get(key)
+        if prog is None:
+            prog = _Program(self, spec, leaves)
+            if self.device.type == "cuda":
+                for s, x in zip(prog.static_in, leaves):
+                    s.copy_(x)
+                prog.capture()
+            self.programs[key] = prog
+        return prog.run(leaves)

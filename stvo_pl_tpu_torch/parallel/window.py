@@ -13,6 +13,10 @@ VO engine and the windowed BA (port of stvo_pl_tpu/parallel/window.py).
   * solve with parallel.ba (`make_sharded_window_refiner`: landmarks
     split over a mesh's data axis).
 
+`compile_refiner` captures the whole refinement (problem build, both
+solves, the line-trust select) as a CUDA graph per window size, the
+counterpart of the JAX package's jitted refiners (parallel/compiled.py).
+
 Two members of one component can sit in the same keyframe (features i
 and j of keyframe 0 joined through keyframes 1 and 2).  The reference
 writes the table with an XLA scatter whose duplicate updates land in
@@ -36,6 +40,7 @@ from stvo_pl_tpu_torch.models.features import LineSet, PointSet
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import hamming, matching, se3
 from stvo_pl_tpu_torch.parallel import ba
+from stvo_pl_tpu_torch.parallel.compiled import Compiled
 from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis
 
 
@@ -182,7 +187,7 @@ def build_problem_tracks(win: KeyframeWindow, cam: cam_ops.StereoCamera,
 
     Lf = _track_labels(dist_fn, valid, K, Np, cfg.min_ratio_12_p, cfg)
     valid_f = valid.reshape(-1)
-    k_of_n = torch.arange(K, device=dev).repeat_interleave(Np)
+    k_of_n = torch.arange(K, device=dev)[:, None].expand(K, Np).reshape(-1)
 
     # --- member observations written into the track table -------------
     uv = pts.uv.reshape(-1, 2)
@@ -253,7 +258,7 @@ def _build_line_tracks(win: KeyframeWindow, cam: cam_ops.StereoCamera,
     Lf = _track_labels(dist_fn, valid, K, Nl, cfg.min_ratio_12_l, cfg,
                        extra_cand=dir_cand)
     valid_f = valid.reshape(-1)
-    k_of_n = torch.arange(K, device=dev).repeat_interleave(Nl)
+    k_of_n = torch.arange(K, device=dev)[:, None].expand(K, Nl).reshape(-1)
 
     # --- member observations written into the track table ---------------
     obs_node = torch.cat([ls.le.reshape(-1, 3), ls.spl.reshape(-1, 2),
@@ -352,6 +357,29 @@ def refine_window_auto(win: KeyframeWindow, cam: cam_ops.StereoCamera,
     X = torch.where(use_lines, Xj, Xp)
     costs = torch.where(use_lines, costs_j, costs_p)
     return se3.inverse_se3(poses), X, costs, use_lines
+
+
+def compile_refiner(cam: cam_ops.StereoCamera, cfg: VOConfig,
+                    n_iters: int = 6, multi_anchor: bool = True,
+                    auto: bool = True, chi2_tol: float = 1.10,
+                    max_disagree_t: float = 0.25,
+                    max_disagree_r: float = 1.0, device=None) -> Compiled:
+    """`refine_window_auto` (`auto=False`: `refine_window`) as a captured
+    program on `device` ("cuda" unless the caller asks for the CPU), one
+    graph per window size K and per window structure (with or without
+    line snapshots): `refine(win)` returns what the eager refiner returns,
+    bit for bit, as tensors that belong to the caller."""
+    if auto:
+        def refine(win):
+            return refine_window_auto(
+                win, cam, cfg, n_iters=n_iters, multi_anchor=multi_anchor,
+                chi2_tol=chi2_tol, max_disagree_t=max_disagree_t,
+                max_disagree_r=max_disagree_r)
+    else:
+        def refine(win):
+            return refine_window(win, cam, cfg, n_iters=n_iters,
+                                 multi_anchor=multi_anchor)
+    return Compiled(refine, device)
 
 
 def make_sharded_window_refiner(mesh, cam: cam_ops.StereoCamera,

@@ -13,6 +13,7 @@ port's loader raises where the JAX one ends the sequence silently (a file
 that does not decode) or overflows its buffer (an image of another size).
 """
 
+import gc
 import os
 
 import numpy as np
@@ -206,24 +207,41 @@ def test_bad_frame_raises(tmp_path, lib, rng, fault):
     assert len(got) == 2 and seq.loader == "native"
 
 
-def _threads() -> int:
-    return len(os.listdir("/proc/self/task"))
+def _loader_threads() -> int:
+    """Live threads of this process that the native library named
+    "stvo-loader": the count is blind to the thread pools of torch, gloo
+    or JAX, which start and stop on their own clock when other test files
+    ran in the same worker."""
+    n = 0
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as f:
+                n += f.read().strip() == "stvo-loader"
+        except FileNotFoundError:      # the thread ended meanwhile
+            pass
+    return n
 
 
 def test_early_close_joins_workers(tmp_path, lib, rng):
-    paths_l, paths_r, arrays = pairs(tmp_path, rng, 12)
-    before = _threads()
+    # more frames than the decode window (CAPACITY), so no worker runs
+    # out of frames and ends on its own before close()
+    n = tnl.CAPACITY + 8
+    paths_l, paths_r, arrays = pairs(tmp_path, rng, n)
+    gc.collect()                    # loaders of earlier tests close now
+    before = _loader_threads()
     ld = tnl.PrefetchingLoader(paths_l, paths_r, W, H, n_threads=4)
-    assert _threads() >= before + 1
+    assert _loader_threads() == before + 4
     it = iter(ld)
     first = next(it)
     np.testing.assert_array_equal(first[0].numpy(), arrays[0][0])
     it.close()                      # the consumer stops early
-    assert ld.handle is None and _threads() == before
+    assert ld.handle is None and _loader_threads() == before
     ld.close()                      # idempotent
     with tnl.PrefetchingLoader(paths_l, paths_r, W, H, n_threads=3) as ld:
-        next(iter(ld))
-    assert ld.handle is None and _threads() == before
+        it = iter(ld)
+        next(it)
+        assert _loader_threads() == before + 3
+    assert ld.handle is None and _loader_threads() == before
 
 
 def test_built_outside_the_package(lib):
