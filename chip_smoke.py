@@ -33,11 +33,15 @@ Hamming distances (ba_popcount: equal problems and poses, 12 B5 launches,
 the same window on the CPU).  Over the first 6 frames of the 8 lanes it
 drives the EDLine detector (vo_edlines: use_edlines=True at edline_scale
 2 and 1, with detect_edlines on the card against the CPU and two RGB-D
-steps), and in an NCCL world of one (sharded) the sharded step against
-vo_step_batched, timed in turns, then make_sharded_ba and the sharded
-window refiner on the ba_popcount window against ba_solve and
-refine_window, and tp_match against the dense matcher, all
-`torch.equal`.  Then it checkpoints the 8 lanes' state after 3 of 6
+steps), and in an NCCL world of one (sharded) the compiled sharded step,
+the same step with every matcher column-sharded over a model group of 1
+(its all-gathers captured) and the unsharded compiled step, each timed in
+turns with its eager body, then the compiled make_sharded_ba and the
+compiled sharded window refiner (both Hamming routes) on the ba_popcount
+window against their eager bodies, ba_solve, compile_refiner and
+refine_window, and tp_match against the dense matcher, all `torch.equal`,
+with the collectives each capture issued and what the graphs hold for
+them.  Then it checkpoints the 8 lanes' state after 3 of 6
 frames and resumes from the file (checkpoint: the resumed poses
 `torch.equal` to the straight run's, or within the difference of two
 straight runs), and, last, traces one default step and 3 replays of
@@ -406,7 +410,7 @@ def cli_ba_phase(root: str, gt: np.ndarray, cam, cfg, wrappers: dict,
     graphs = []
     for c in made:
         for prog in c.programs.values():
-            nodes = graph_kernels(prog.graph)
+            nodes = graph_nodes(prog.graph)[0]
             graphs.append(dict(prog=prog, nodes=wrapper_nodes(nodes),
                                kernel_nodes=sum(nodes.values())))
     graph_launches = replayed(graphs, wrappers, [0] * len(graphs))
@@ -792,134 +796,306 @@ def same(a, b) -> bool:
                                       for x, y in zip(la, lb))
 
 
+@contextlib.contextmanager
+def collectives_in_capture():
+    """Inside the block, counts by name the calls of torch.distributed's
+    all_gather_into_tensor and all_reduce made while a CUDA graph is being
+    captured (a Compiled's warm-up makes the same calls uncaptured)."""
+    import torch.distributed as dist
+    calls: dict = {}
+    saved = {n: getattr(dist, n) for n in ("all_gather_into_tensor",
+                                           "all_reduce")}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
 def sharded_phase(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
                   smi: str) -> dict:
     """An NCCL world of one on the card (parallel.mesh.init_distributed
-    without torchrun's environment): the sharded VO step on the 8 lanes
-    against vo_step_batched, both timed in turns, `torch.equal` in every
-    telemetry field and the final state; on the ba_popcount window,
-    make_sharded_ba against ba_solve and the sharded window refiner
-    against refine_window, with the bf16 product's and with B5's
-    distances; tp_match against the dense matcher on its points."""
+    without torchrun's environment) running the sharded programs
+    (sharded_programs).  Every program holds a graph that holds the
+    world's communicator, so all of them are let go of, and the device
+    synchronized, before the group is destroyed, also when a check
+    failed."""
+    import gc
+    import traceback
+    import torch.distributed as dist
+    from stvo_pl_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.init_distributed(device_type="cuda")
+    try:
+        return sharded_programs(root, cam, cfg, seq_l, seq_r, wrappers, smi)
+    except BaseException as e:
+        # a failed check's frames hold their programs
+        traceback.clear_frames(e.__traceback__)
+        raise
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
+TP_MIN_FEATURES = 16    # the TP-forced step column-shards every matcher
+
+
+def sharded_programs(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
+                     smi: str) -> dict:
+    """In the NCCL world of one of sharded_phase: the compiled sharded
+    step (make_sharded_vo_step) and the same step with every matcher
+    column-sharded over the model group of 1 (`tp=(group, 1)`, compiled
+    here: its all-gathers captured) over the 8 lanes, each in turns with
+    its eager body and with the unsharded compiled step (compile_vo_step),
+    `torch.equal` in every telemetry field and the final state, B1-B3's
+    launches read from the graphs; on the ba_popcount window the compiled
+    make_sharded_ba against its body and ba_solve, and the compiled
+    sharded window refiner, with the bf16 product's and with B5's
+    distances, against its body, compile_refiner and refine_window, B5's
+    launches read from its graph; tp_match against the dense matcher.
+    Prints the collectives each capture issued and what the graphs hold
+    for them (two probe programs: one all-gather, one all-reduce)."""
     import torch.distributed as dist
     from stvo_pl_tpu_torch.ops import hamming, matching, se3
-    from stvo_pl_tpu_torch.parallel import ba, batched, tp, window
+    from stvo_pl_tpu_torch.parallel import ba, batched, compiled, tp, window
     from stvo_pl_tpu_torch.parallel import mesh as mesh_mod
 
     sync = torch.cuda.synchronize
     nf = POINTS_ONLY_FRAMES
     dev = seq_l.device
-    mesh_mod.init_distributed(device_type=dev.type)
-    try:
-        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
-                f"sharded: {dist.get_backend()} world of "
-                f"{dist.get_world_size()}")
-        mesh = mesh_mod.make_mesh(device_type=dev.type)
-        step, place = batched.make_sharded_vo_step(mesh, cam, cfg)
-        ms = {"unsharded": [], "sharded": []}
-        runs, launches = {}, {}
-        for rep in range(2):                 # in turns
-            for name in ("unsharded", "sharded"):
-                state = batched.init_batched_state(cfg, BATCH, device=dev)
-                if name == "sharded":
-                    state, _, _ = place(state, seq_l[:, 0], seq_r[:, 0])
-                for w in wrappers.values():
-                    w.launches = 0
-                tel = []
-                for i in range(nf):
-                    if i == WARMUP_FRAMES:
-                        sync()
-                        t0 = time.perf_counter()
-                    il = seq_l[:, i].contiguous()
-                    ir = seq_r[:, i].contiguous()
-                    if name == "sharded":
-                        state, t = step(state, mesh_mod.data_slice(mesh, il),
-                                        mesh_mod.data_slice(mesh, ir))
-                    else:
-                        state, t = batched.vo_step_batched(state, il, ir,
-                                                           cam, cfg)
-                    tel.append(t)
-                sync()
-                ms[name].append((time.perf_counter() - t0)
-                                / (nf - WARMUP_FRAMES) * 1e3)
-                if rep == 0:
-                    runs[name] = (tel, state)
-                    launches[name] = {k: w.launches
-                                      for k, w in wrappers.items()}
-        (tu, su), (ts, ss) = runs["unsharded"], runs["sharded"]
-        require(all(torch.equal(a, b) for x, y in zip(tu, ts)
-                    for a, b in zip(x, y))
-                and all(torch.equal(a, b)
-                        for a, b in zip(_leaves(su), _leaves(ss))),
-                "sharded: the sharded step differs from vo_step_batched")
-        expected = {"fast_pack": nf * cfg.orb_nlevels,
-                    "extract_patches": nf * cfg.orb_nlevels,
-                    "run_pack_multi": nf}
-        for k in wrappers:
-            require(launches["sharded"][k] == expected.get(k, 0),
-                    f"sharded: {k} launched {launches['sharded'][k]} times "
-                    f"in {nf} steps, expected {expected.get(k, 0)}")
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"sharded: {dist.get_backend()} world of "
+            f"{dist.get_world_size()}")
+    mesh = mesh_mod.make_mesh(device_type=dev.type)
+    group = mesh.get_group(mesh_mod.MODEL_AXIS)
 
-        # the landmark-sharded BA and window refiner, one window
-        win, kf_frames = first_window(root, cam, cfg)
-        prob = window.build_problem_tracks(win, cam, cfg)
-        poses_cw = se3.inverse_se3(win.Tfw)
-        solver = ba.make_sharded_ba(mesh, cam, n_iters=8, has_lines=True)
-        timing = {"sharded_ba": [], "ba_solve": []}
-        for _ in range(3):                   # in turns
-            for name in timing:
+    # what one collective becomes in a graph of a world of one
+    def gathered(x):
+        out = torch.empty_like(x)                 # n_shards = 1
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    def reduced(x):
+        y = x + 0
+        dist.all_reduce(y, group=group)
+        return y
+
+    probes = {}
+    for name, body, x in (
+            ("all_gather_into_tensor", gathered,
+             torch.arange(4 * 1200, dtype=torch.int64, device=dev)),
+            ("all_reduce", reduced,
+             torch.rand(24 * 24 + 24 + 1, device=dev))):
+        with collectives_in_capture() as calls:
+            g = first_call(compiled.Compiled(body, dev, groups=(group,)), x)
+        require(torch.equal(g["fn"](x), x) and calls == {name: 1},
+                f"sharded: the {name} probe returned another tensor or "
+                f"captured {calls}")
+        probes[name] = dict(captured_calls=calls, node_kinds=g["node_kinds"],
+                            kernels=g["kernels"], capture_s=g["capture_s"])
+        del g
+
+    # ---- the steps --------------------------------------------------
+    step, place = batched.make_sharded_vo_step(mesh, cam, cfg)
+    require(isinstance(step, compiled.Compiled) and not step.groups,
+            "sharded: make_sharded_vo_step's step is not a Compiled "
+            "without collectives")
+    cfg_tp = cfg.replace(tp_min_features=TP_MIN_FEATURES)
+    tp_step = compiled.Compiled(
+        lambda s, a, b: batched.vo_step_batched(s, a, b, cam, cfg_tp,
+                                                tp=(group, 1)),
+        dev, groups=(group,))
+    lanes0 = lambda: place(batched.init_batched_state(cfg, BATCH, device=dev),
+                           seq_l[:, 0].contiguous(), seq_r[:, 0].contiguous())
+    graphs = {}
+    for name, prog in (("sharded", step), ("tp", tp_step),
+                       ("unsharded", batched.compile_vo_step(cam, cfg,
+                                                             BATCH))):
+        with collectives_in_capture() as calls:
+            graphs[name] = first_call(prog, *lanes0())
+        graphs[name]["captured_calls"] = calls
+    require(graphs["sharded"]["kernels"] == graphs["unsharded"]["kernels"],
+            "sharded: the sharded step's graph holds other kernel nodes "
+            "than compile_vo_step's")
+    require(graphs["sharded"]["captured_calls"] == {}
+            and graphs["tp"]["captured_calls"].get(
+                "all_gather_into_tensor", 0) > 0,
+            f"sharded: collectives captured "
+            f"{ {k: g['captured_calls'] for k, g in graphs.items()} }")
+
+    arms = {"eager": (step.fn, None), "graph": (step, graphs["sharded"]),
+            "tp_eager": (tp_step.fn, None),
+            "tp_graph": (tp_step, graphs["tp"]),
+            "unsharded_graph": (graphs["unsharded"]["fn"],
+                                graphs["unsharded"])}
+    ms = {k: [] for k in arms}
+    runs, launches = {}, {}
+    for rep in range(2):                 # in turns
+        for name, (f, g) in arms.items():
+            state, _, _ = lanes0()
+            since = [g["prog"].replays] if g else []
+            for w in wrappers.values():
+                w.launches = 0
+            tel = []
+            for i in range(nf):
+                if i == WARMUP_FRAMES:
+                    sync()
+                    t0 = time.perf_counter()
+                il = mesh_mod.data_slice(mesh, seq_l[:, i].contiguous())
+                ir = mesh_mod.data_slice(mesh, seq_r[:, i].contiguous())
+                state, t = f(state, il, ir)
+                tel.append(t)
+            sync()
+            ms[name].append((time.perf_counter() - t0)
+                            / (nf - WARMUP_FRAMES) * 1e3)
+            n = {k: w.launches for k, w in wrappers.items()}
+            if g:
+                rep_n = replayed([g], wrappers, since)
+                n = {k: v + rep_n[k] for k, v in n.items()}
+            if rep == 0:
+                runs[name] = (tel, state)
+                launches[name] = n
+    ref_tel, ref_state = runs["eager"]
+    for name, (tel, state) in runs.items():
+        require(all(same(a, b) for a, b in zip(tel, ref_tel))
+                and same(state, ref_state),
+                f"sharded: the {name} step differs from the eager sharded "
+                "step")
+    expected = {"fast_pack": nf * cfg.orb_nlevels,
+                "extract_patches": nf * cfg.orb_nlevels,
+                "run_pack_multi": nf}
+    for name, n in launches.items():
+        for k in wrappers:
+            require(n[k] == expected.get(k, 0),
+                    f"sharded: {k} launched {n[k]} times in {nf} steps of "
+                    f"{name}, expected {expected.get(k, 0)}")
+    steps = dict(
+        frames=nf, timed_frames=nf - WARMUP_FRAMES,
+        order=", ".join(arms), ms_per_step=ms,
+        eager_over_graph=min(ms["eager"]) / min(ms["graph"]),
+        tp_eager_over_graph=min(ms["tp_eager"]) / min(ms["tp_graph"]),
+        tp_min_features=TP_MIN_FEATURES, launches=launches,
+        graphs={k: dict(capture_s=g["capture_s"],
+                        first_call_bytes=g["first_call_bytes"],
+                        kernel_nodes=g["kernel_nodes"],
+                        node_kinds=g["node_kinds"],
+                        captured_calls=g["captured_calls"])
+                for k, g in graphs.items()},
+        equal=True, same_kernel_nodes_as_compile_vo_step=True)
+    # let the three 8-lane programs go (each keeps its graph's pool)
+    del step, tp_step, prog, f, g, arms, graphs, runs
+
+    # ---- the landmark-sharded BA, one window ------------------------
+    win, kf_frames = first_window(root, cam, cfg)
+    prob = window.build_problem_tracks(win, cam, cfg)
+    poses_cw = se3.inverse_se3(win.Tfw)
+    args = (poses_cw, prob.X, prob.obs, prob.mask, prob.sigma2, prob.Xl,
+            prob.obs_l, prob.mask_l, prob.sigma2_l)
+    solver = ba.make_sharded_ba(mesh, cam, n_iters=8, has_lines=True)
+    require(isinstance(solver, compiled.Compiled),
+            "sharded: make_sharded_ba's solver is not a Compiled")
+    with collectives_in_capture() as calls:
+        g = first_call(solver, *args)
+    require(calls == {"all_reduce": 8},
+            f"sharded: the BA's capture issued {calls}")
+    ba_arms = {"eager": solver.fn, "graph": solver,
+               "ba_solve": lambda *a: ba.ba_solve(poses_cw, prob, cam,
+                                                  n_iters=8)}
+    ba_ms = {k: [] for k in ba_arms}
+    outs = {}
+    for _ in range(3):                   # in turns
+        for name, f in ba_arms.items():
+            sync()
+            t0 = time.perf_counter()
+            outs[name] = f(*args)
+            sync()
+            ba_ms[name].append((time.perf_counter() - t0) * 1e3)
+    require(same(outs["graph"], outs["eager"])
+            and same(outs["eager"], outs["ba_solve"]),
+            "sharded: make_sharded_ba (graph, eager) differs from ba_solve")
+    ba_r = dict(ms=ba_ms, capture_s=g["capture_s"],
+                first_call_bytes=g["first_call_bytes"],
+                kernel_nodes=g["kernel_nodes"], node_kinds=g["node_kinds"],
+                captured_calls=calls, equal=True)
+    del solver, ba_arms, g, outs
+
+    # ---- the sharded window refiner, both Hamming routes ------------
+    n_pairs = BA_WINDOW * (BA_WINDOW - 1) // 2
+    popc = {"hamming_matrix_popc": None}
+    refiners = {}
+    for route, use_mxu in (("bf16_product", True),
+                           ("popcount_kernel", False)):
+        c = cfg.replace(hamming_use_mxu=use_mxu)
+        refine = window.make_sharded_window_refiner(mesh, cam, c, n_iters=8,
+                                                    has_lines=True)
+        require(isinstance(refine, compiled.Compiled),
+                "sharded: the window refiner is not a Compiled")
+        with collectives_in_capture() as calls:
+            g = first_call(refine, win)
+        require(calls == {"all_reduce": 8},
+                f"sharded: the refiner's capture ({route}) issued {calls}")
+        g_plain = first_call(window.compile_refiner(cam, c, n_iters=8,
+                                                    auto=False), win)
+        want = g_plain["fn"](win)
+        ref = window.refine_window(win, cam, c, n_iters=8)
+        require(same(want, ref), f"sharded: compile_refiner ({route}) "
+                "differs from refine_window")
+        r_ms = {"eager": [], "graph": []}
+        b5 = {"eager": [], "graph": []}
+        for _ in range(3):               # in turns
+            for name, f in (("eager", refine.fn), ("graph", refine)):
+                hamming.hamming_matrix_popc.launches = 0
+                since = [g["prog"].replays]
                 sync()
                 t0 = time.perf_counter()
-                if name == "sharded_ba":
-                    got = solver(poses_cw, prob.X, prob.obs, prob.mask,
-                                 prob.sigma2, prob.Xl, prob.obs_l,
-                                 prob.mask_l, prob.sigma2_l)
-                else:
-                    ref = ba.ba_solve(poses_cw, prob, cam, n_iters=8)
+                got = f(win)
                 sync()
-                timing[name].append((time.perf_counter() - t0) * 1e3)
-        require(all(torch.equal(a, b) for a, b in zip(got, ref)),
-                "sharded: make_sharded_ba differs from ba_solve")
-        refiner_b5 = {}
-        for route, use_mxu in (("bf16_product", True),
-                               ("popcount_kernel", False)):
-            c = cfg.replace(hamming_use_mxu=use_mxu)
-            hamming.hamming_matrix_popc.launches = 0
-            got = window.make_sharded_window_refiner(
-                mesh, cam, c, n_iters=8, has_lines=True)(win)
-            sync()
-            refiner_b5[route] = hamming.hamming_matrix_popc.launches
-            ref = window.refine_window(win, cam, c, n_iters=8)
-            require(all(torch.equal(a, b) for a, b in zip(got, ref)),
-                    f"sharded: the window refiner ({route}) differs from "
-                    "refine_window")
-        n_pairs = BA_WINDOW * (BA_WINDOW - 1) // 2
-        require(refiner_b5 == {"bf16_product": 0,
-                               "popcount_kernel": 2 * n_pairs},
-                f"sharded: B5 launches in the refiner {refiner_b5}")
+                r_ms[name].append((time.perf_counter() - t0) * 1e3)
+                b5[name].append(hamming.hamming_matrix_popc.launches
+                                + replayed([g], popc, since)[
+                                    "hamming_matrix_popc"])
+                require(same(got, want), f"sharded: the {name} sharded "
+                        f"refiner ({route}) differs from compile_refiner")
+        n_b5 = 2 * n_pairs if not use_mxu else 0
+        require(b5 == {"eager": [n_b5] * 3, "graph": [n_b5] * 3},
+                f"sharded: B5 launched {b5} times per window ({route}), "
+                f"expected {n_b5}")
+        refiners[route] = dict(
+            ms=r_ms, b5_launches_per_window=b5, capture_s=g["capture_s"],
+            first_call_bytes=g["first_call_bytes"],
+            kernel_nodes=g["kernel_nodes"], node_kinds=g["node_kinds"],
+            b5_nodes=g["nodes"]["hamming_matrix_popc"],
+            captured_calls=calls, equal=True)
+        del refine, f, g, g_plain
 
-        # the stand-alone TP matcher (one shard) against the dense one
-        d1, d2 = win.points.desc[0], win.points.desc[1]
-        v1, v2 = win.points.valid[0], win.points.valid[1]
-        res = tp.tp_match(d1, v1, d2, v2, cfg.min_ratio_12_p, mesh)
-        dense = matching.nnr_mutual_match(
-            hamming.hamming_matrix(d1, d2, use_mxu=False),
-            v1[:, None] & v2[None, :], cfg.min_ratio_12_p)
-        require(torch.equal(res.idx, dense.idx)
-                and torch.equal(res.valid, dense.valid),
-                "sharded: tp_match differs from nnr_mutual_match")
-        return dict(backend=dist.get_backend(),
-                    world=dist.get_world_size(), lanes=BATCH, frames=nf,
-                    timed_frames=nf - WARMUP_FRAMES, step_equal=True,
-                    ms_per_step=ms,
-                    launches=launches["sharded"],
-                    window_keyframes=kf_frames, ba_equal=True,
-                    ba_ms=timing, refiner_equal=True,
-                    refiner_b5_launches=refiner_b5,
-                    tp_match_equal=True, tp_matches=int(res.valid.sum()),
-                    card=smi)
-    finally:
-        dist.destroy_process_group()
+    # the stand-alone TP matcher (one shard, eager as in the JAX package)
+    d1, d2 = win.points.desc[0], win.points.desc[1]
+    v1, v2 = win.points.valid[0], win.points.valid[1]
+    res = tp.tp_match(d1, v1, d2, v2, cfg.min_ratio_12_p, mesh)
+    dense = matching.nnr_mutual_match(
+        hamming.hamming_matrix(d1, d2, use_mxu=False),
+        v1[:, None] & v2[None, :], cfg.min_ratio_12_p)
+    require(torch.equal(res.idx, dense.idx)
+            and torch.equal(res.valid, dense.valid),
+            "sharded: tp_match differs from nnr_mutual_match")
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(),
+                lanes=BATCH, steps=steps, launches=launches["graph"],
+                window_keyframes=kf_frames, ba=ba_r, refiners=refiners,
+                refiner_b5_launches={k: r["b5_launches_per_window"]["graph"][0]
+                                     for k, r in refiners.items()},
+                collective_probes=probes, tp_match_equal=True,
+                tp_matches=int(res.valid.sum()), card=smi)
 
 
 def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
@@ -1026,7 +1202,7 @@ CUDA_KERNELS = {**TRACED_KERNELS, "run_plane_kernel": "run_pack",
 def kept_graphs():
     """Inside the block every torch.cuda.CUDAGraph is made with
     keep_graph=True, so that its captured graph can be read
-    (graph_kernels); it is instantiated at its first replay."""
+    (graph_nodes); it is instantiated at its first replay."""
     base = torch.cuda.CUDAGraph
 
     class Kept(base):
@@ -1052,18 +1228,26 @@ class _KernelNodeParams(ctypes.Structure):
                                                    "ctx")])
 
 
-def graph_kernels(graph) -> dict:
-    """The kernel nodes of a captured graph (a torch.cuda.CUDAGraph made
-    inside kept_graphs), child graphs included, counted by the CUDA
-    function's (mangled) name, read from the graph through the driver
-    API: what one replay launches."""
+# CUgraphNodeType of the driver API (cuda.h)
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph",
+              5: "empty", 6: "wait_event", 7: "event_record",
+              8: "semaphore_signal", 9: "semaphore_wait", 10: "mem_alloc",
+              11: "mem_free", 12: "batch_mem_op", 13: "conditional"}
+
+
+def graph_nodes(graph) -> tuple[dict, dict]:
+    """The nodes of a captured graph (a torch.cuda.CUDAGraph made inside
+    kept_graphs), child graphs included, read from the graph through the
+    driver API: its kernel nodes counted by the CUDA function's (mangled)
+    name, what one replay launches, and every node counted by kind."""
     cu = ctypes.CDLL("libcuda.so.1")
     P = ctypes.c_void_p
 
     def ok(res, what):
-        require(res == 0, f"graph_kernels: {what} returned CUresult {res}")
+        require(res == 0, f"graph_nodes: {what} returned CUresult {res}")
 
     counts: dict = {}
+    kinds: dict = {}
 
     def walk(g):
         n = ctypes.c_size_t(0)
@@ -1074,32 +1258,34 @@ def graph_kernels(graph) -> dict:
             kind = ctypes.c_int()
             ok(cu.cuGraphNodeGetType(P(node), ctypes.byref(kind)),
                "cuGraphNodeGetType")
-            if kind.value == 3:                     # a child graph
+            name = NODE_KINDS.get(kind.value, str(kind.value))
+            kinds[name] = kinds.get(name, 0) + 1
+            if name == "graph":
                 child = P()
                 ok(cu.cuGraphChildGraphNodeGetGraph(P(node),
                                                     ctypes.byref(child)),
                    "cuGraphChildGraphNodeGetGraph")
                 walk(child.value)
-            elif kind.value == 0:                   # a kernel
+            elif name == "kernel":
                 p = _KernelNodeParams()
                 ok(cu.cuGraphKernelNodeGetParams_v2(P(node), ctypes.byref(p)),
                    "cuGraphKernelNodeGetParams")
-                name = ctypes.c_char_p()
+                fname = ctypes.c_char_p()
                 if p.func:
-                    ok(cu.cuFuncGetName(ctypes.byref(name), P(p.func)),
+                    ok(cu.cuFuncGetName(ctypes.byref(fname), P(p.func)),
                        "cuFuncGetName")
                 else:
-                    ok(cu.cuKernelGetName(ctypes.byref(name), P(p.kern)),
+                    ok(cu.cuKernelGetName(ctypes.byref(fname), P(p.kern)),
                        "cuKernelGetName")
-                key = name.value.decode()
+                key = fname.value.decode()
                 counts[key] = counts.get(key, 0) + 1
 
     walk(graph.raw_cuda_graph())
-    return counts
+    return counts, kinds
 
 
 def wrapper_nodes(counts: dict) -> dict:
-    """graph_kernels' counts summed per kernel wrapper: a wrapper's count
+    """graph_nodes' kernel counts summed per kernel wrapper: a wrapper's count
     is the kernel nodes of its CUDA kernels (by their length-prefixed
     names in the mangled ones), all of which it launches once a call, so
     it must be the same for each of them."""
@@ -1117,7 +1303,8 @@ def first_call(compiled, *args) -> dict:
     """The first call of a parallel.compiled.Compiled (warm-up, capture
     and one replay), its graph kept: the call's seconds, the device memory
     it left allocated (static buffers and the graph's pool), and the
-    graph's kernel nodes (in all, and per kernel wrapper)."""
+    graph's kernel nodes (in all, per kernel wrapper and per CUDA
+    function) and nodes by kind."""
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -1126,10 +1313,11 @@ def first_call(compiled, *args) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     prog, = compiled.programs.values()
-    nodes = graph_kernels(prog.graph)
+    nodes, kinds = graph_nodes(prog.graph)
     return dict(fn=compiled, prog=prog, capture_s=seconds,
                 first_call_bytes=torch.cuda.memory_allocated() - mem0,
-                kernel_nodes=sum(nodes.values()), nodes=wrapper_nodes(nodes))
+                kernel_nodes=sum(nodes.values()), nodes=wrapper_nodes(nodes),
+                node_kinds=kinds, kernels=nodes)
 
 
 def replayed(graphs: list, wrappers: dict, since: list) -> dict:
@@ -2195,6 +2383,7 @@ def main() -> None:
         "vo_edlines_scale1": r_ed["scale1"]["launches"],
         "rgbd_edlines": rgbd_ed_launches,
         "sharded": r_sh["launches"],
+        "sharded_tp": r_sh["steps"]["launches"]["tp_graph"],
         "checkpoint": r_ck["launches"], "profiling": r_prof["launches"],
         "sharded_refiner": {"hamming_matrix_popc":
                             r_sh["refiner_b5_launches"]["popcount_kernel"]},

@@ -18,7 +18,7 @@ native prefetching loader that the CLI reads frames through
 checkpoint / resume of the VO state (`utils/checkpoint.py`) and
 torch.profiler tracing (`utils/profiling.py`).  It has a counterpart of
 every module of the JAX package, and of its `jax.jit` entry points: the
-VO step and the BA window captured as CUDA graphs
+VO step and the BA window, unsharded and sharded, captured as CUDA graphs
 (`parallel/compiled.py`), which the entry points use on CUDA.
 Entry points run on the GPU unless the caller passes device="cpu"
 (`--device cpu` for the CLI).  The package never imports JAX or the JAX

@@ -36,7 +36,8 @@ import torch.distributed as dist
 from stvo_pl_tpu_torch.models.optimizer import segment_overlap
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import robust, se3
-from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis
+from stvo_pl_tpu_torch.parallel.compiled import Compiled
+from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis, mesh_device
 
 
 class BAProblem(NamedTuple):
@@ -350,7 +351,13 @@ def make_sharded_ba(mesh, cam, n_iters: int = 8, damping: float = 1e-4,
     local.  Returns (poses, X_shard, costs) or, with has_lines, (poses,
     X_shard, Xl_shard, costs): the poses and costs are the same on every
     rank, the landmarks this rank's rows.  A landmark count that n_data
-    does not divide raises ValueError."""
+    does not divide raises ValueError on the first call, before the body
+    does any device work.
+
+    `solve` is a captured program on the mesh's device
+    (parallel/compiled.py), one graph per problem shape with its n_iters
+    all-reduces inside, the counterpart of the JAX package's
+    `jax.jit(sharded)`; `solve.fn` is its eager body."""
     group, n_data, rank = axis(mesh, DATA_AXIS)
 
     def shard(name, *xs):
@@ -393,4 +400,5 @@ def make_sharded_ba(mesh, cam, n_iters: int = 8, damping: float = 1e-4,
             return poses, prob.X, prob.Xl, torch.stack(costs)
         return poses, prob.X, torch.stack(costs)
 
-    return solve
+    return Compiled(solve, mesh_device(mesh),
+                    groups=() if group is None else (group,))

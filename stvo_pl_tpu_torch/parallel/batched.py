@@ -10,7 +10,8 @@ column-shard every matcher whose query set reaches cfg.tp_min_features
 
 `compile_vo_step` is the step captured as a CUDA graph, the counterpart of
 the JAX package's jitted `vo_step_batched` (parallel/compiled.py);
-`vo_scan_batched` replays it on CUDA.
+`vo_scan_batched` replays it on CUDA.  The sharded step is captured the
+same way, its TP all-gathers inside the graph.
 """
 
 from __future__ import annotations
@@ -89,7 +90,12 @@ def make_sharded_vo_step(mesh, cam: cam_ops.StereoCamera, cfg: VOConfig):
     B / n_data lanes on its device; `step(state, imgs_l, imgs_r)` advances
     them.  With a model axis of size > 1 every matcher whose budget
     reaches cfg.tp_min_features column-shards its distance matrix over it;
-    without one the step issues no collective."""
+    without one the step issues no collective.
+
+    `step` is a captured program on the mesh's device (parallel/compiled.py),
+    the counterpart of the JAX package's jitted sharded step: with a model
+    axis its graph holds the matchers' all-gathers; `step.fn` is its eager
+    body.  `place` runs on the host side, outside the program."""
     group, n_model, _ = axis(mesh, MODEL_AXIS)
     tp = (group, n_model) if n_model > 1 else None
     dev = mesh_device(mesh)
@@ -102,7 +108,7 @@ def make_sharded_vo_step(mesh, cam: cam_ops.StereoCamera, cfg: VOConfig):
         return (state, data_slice(mesh, imgs_l).to(dev),
                 data_slice(mesh, imgs_r).to(dev))
 
-    return step, place
+    return Compiled(step, dev, groups=(group,) if tp else ()), place
 
 
 def vo_scan_batched(state: frontend.VOState, seq_l: torch.Tensor,

@@ -32,11 +32,26 @@ say what each one launches.
 Constants.  A graph reads the device constants of its capture by address
 and holds no reference to them, so the program holds every value of the
 per-device caches (`device.device_cache`) that its first run read.
+
+Collectives.  A program whose body runs collectives (the sharded step's
+TP all-gathers, the sharded BA's all-reduces) names their process groups
+in `groups`.  The warm-up makes the first collective, which creates the
+NCCL communicator, and the device is synchronized before the capture, so
+none of the warm-up's work is in flight while the capture runs.  A graph
+holds the communicator's kernels and buffers by address, so a program
+must not outlive its groups: every call first checks that each group is
+still registered and raises if `destroy_process_group` has removed it,
+on the CPU too.  Destroying a group does not release its programs, so a
+caller drops them (and synchronizes) before `destroy_process_group`.
+The capture keeps torch's default "global" error mode: no capture with
+collectives failed in it, in an NCCL world of one H100 or of four
+(PERF.md §6).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from stvo_pl_tpu_torch.device import owning, resolve_device
 
@@ -92,6 +107,7 @@ class _Program:
             with torch.cuda.stream(side):
                 fn(*args)                               # the warm-up
             torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 out = fn(*args)
@@ -113,14 +129,23 @@ class _Program:
 
 class Compiled:
     """`fn` as a captured program on `device` ("cuda" unless the caller
-    asks for the CPU); see the module's docstring."""
+    asks for the CPU); `groups`: the process groups of the collectives
+    that `fn` runs.  See the module's docstring."""
 
-    def __init__(self, fn, device=None):
+    def __init__(self, fn, device=None, groups=()):
         self.fn = fn
         self.device = resolve_device(device)
+        self.groups = tuple(groups)
         self.programs: dict = {}    # static key -> _Program
 
     def __call__(self, *args):
+        for group in self.groups:
+            try:
+                dist.get_rank(group)
+            except (ValueError, RuntimeError) as e:
+                raise RuntimeError(
+                    "a compiled program outlived its process group: drop "
+                    "it before destroy_process_group()") from e
         leaves = []
         spec = _flatten(args, leaves)
         key = spec, tuple((tuple(x.shape), x.dtype) for x in leaves)

@@ -38,7 +38,9 @@ class ConfigGroup:
 class GroupRunner:
     """Split the ranks of the default group into len(groups) contiguous
     groups (a ("group", "data", "model") mesh of shape (G, world / G, 1))
-    and build, on each rank, the sharded VO step of its own group only.
+    and build, on each rank, the sharded VO step of its own group only: a
+    captured program (batched.make_sharded_vo_step), the counterpart of
+    the JAX package's one compiled step per group.
 
     Every rank of the world constructs the runner (making the mesh is
     collective).  `index` is this rank's group; `step(i, ...)` runs group

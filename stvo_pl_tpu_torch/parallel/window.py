@@ -15,7 +15,8 @@ VO engine and the windowed BA (port of stvo_pl_tpu/parallel/window.py).
 
 `compile_refiner` captures the whole refinement (problem build, both
 solves, the line-trust select) as a CUDA graph per window size, the
-counterpart of the JAX package's jitted refiners (parallel/compiled.py).
+counterpart of the JAX package's jitted refiners (parallel/compiled.py);
+the sharded refiner is captured the same way, its collectives inside.
 
 Two members of one component can sit in the same keyframe (features i
 and j of keyframe 0 joined through keyframes 1 and 2).  The reference
@@ -41,7 +42,7 @@ from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import hamming, matching, se3
 from stvo_pl_tpu_torch.parallel import ba
 from stvo_pl_tpu_torch.parallel.compiled import Compiled
-from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis
+from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis, mesh_device
 
 
 class KeyframeWindow(NamedTuple):
@@ -393,9 +394,15 @@ def make_sharded_window_refiner(mesh, cam: cam_ops.StereoCamera,
     over the data axis.  has_lines must match whether the windows carry
     LineSet snapshots.  `refine(win)` returns (Tfw refined [K, 4, 4],
     points [K * Np, 3] gathered in rank order, the shape `refine_window`
-    returns, costs [n_iters]), the same on every rank."""
+    returns, costs [n_iters]), the same on every rank.
+
+    `refine` is a captured program on the mesh's device (problem build,
+    sharded solve and, when n_data > 1, the points' all-gather; one graph
+    per window size), as `compile_refiner` is for `refine_window`;
+    `refine.fn` is its eager body.  The body calls the solver's eager
+    body: a capture cannot hold another program's capture."""
     solver = ba.make_sharded_ba(mesh, cam, n_iters=n_iters,
-                                has_lines=has_lines)
+                                has_lines=has_lines).fn
     build = build_problem_tracks if multi_anchor else build_problem
     group, n_data, _ = axis(mesh, DATA_AXIS)
 
@@ -416,4 +423,5 @@ def make_sharded_window_refiner(mesh, cam: cam_ops.StereoCamera,
             X = X_all.reshape(-1, 3)
         return se3.inverse_se3(poses_cw), X, costs
 
-    return refine
+    return Compiled(refine, mesh_device(mesh),
+                    groups=() if group is None else (group,))

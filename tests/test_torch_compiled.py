@@ -20,13 +20,17 @@ waits for the device.  `test_step_never_touches_the_host` runs every VO
 mode and the window refiner under a dispatch mode that refuses the
 operations that would (a tensor made from host data, `.item()` and
 `bool()` of a tensor, `nonzero`, boolean-mask indexing, `unique`, ...):
-what a CPU run can say of what the card's capture needs.
+what a CPU run can say of what the card's capture needs.  Its sharded
+modes (the TP step, the sharded BA and refiner) run in a gloo world of
+one, which `test_program_refuses_to_outlive_its_group` also uses: a
+program with collectives refuses to run once its group is destroyed.
 
 The `gpu` cases hold each VO mode's graph `torch.equal` to the eager step
 on the card (EDLines, whose moments are atomic float sums, by
-chip_smoke.py's rule for them), and a replay after the constant caches
-were cleared and their memory reused equal to eager; they skip without
-a CUDA device.  They import no JAX, so on a
+chip_smoke.py's rule for them), a replay after the constant caches
+were cleared and their memory reused equal to eager, and in an NCCL
+world of one the sharded programs' replays equal to their eager bodies
+and the unsharded programs; they skip without a CUDA device.  They import no JAX, so on a
 machine with a card they run as
 `pytest --noconftest -m gpu tests/test_torch_compiled.py`.
 """
@@ -302,51 +306,131 @@ class _HostAudit(TorchDispatchMode):
 
 AUDIT_MODES = ["default", "points_only", "dense_all_direction",
                "dense_per_direction", "popcount", "rgbd", "edlines",
-               "window_refiner"]
+               "window_refiner", "sharded_tp_step", "sharded_ba",
+               "sharded_refiner"]
+# the collective that a sharded mode's audited call must make, and how
+# often (None: at least once): one all-gather per column-sharded matcher,
+# one all-reduce per BA iteration
+AUDIT_COLLECTIVES = {"sharded_tp_step": ("all_gather_into_tensor", None),
+                     "sharded_ba": ("all_reduce", 2),
+                     "sharded_refiner": ("all_reduce", 2)}
+
+
+@pytest.fixture
+def gloo_world():
+    """A gloo world of one in this process (parallel.mesh.init_distributed
+    without torchrun's environment) and its 1 x 1 mesh; destroyed after
+    the test, unless the test destroyed it, since one pytest worker runs
+    several files."""
+    import torch.distributed as dist
+    from stvo_pl_tpu_torch.parallel import mesh as mesh_mod
+    assert not dist.is_initialized(), "a process group leaked into the test"
+    mesh_mod.init_distributed(device_type="cpu")
+    try:
+        yield mesh_mod.make_mesh(device_type="cpu")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("mode", AUDIT_MODES)
-def test_step_never_touches_the_host(frames, mode):
+def test_step_never_touches_the_host(frames, mode, request):
     """One lane: the second step of every VO mode (the first builds the
     cached constants, as a capture's warm-up does), and a second
     refinement of a 3-keyframe window, run no operation that copies from
-    the host or syncs, and upload nothing (`torch.from_numpy`)."""
+    the host or syncs, and upload nothing (`torch.from_numpy`).  The
+    sharded modes run in a gloo world of one: the step with every matcher
+    column-sharded over a model group of 1 (`tp=(group, 1)`, so the TP
+    merge and its all-gather run), and second calls of the compiled
+    sharded BA and sharded window refiner (their CPU route: copy in, the
+    body with its all-reduces, clone out)."""
     from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.ops import se3
+    from stvo_pl_tpu_torch.parallel import ba
     L, R, _ = frames
     L, R = torch.from_numpy(L[:1]), torch.from_numpy(R[:1])
     kw, per_direction = GPU_MODES.get(mode, (dict(), False))
+    mesh = (request.getfixturevalue("gloo_world")
+            if mode.startswith("sharded") else None)
+    if mode == "sharded_tp_step":
+        kw = dict(tp_min_features=16)
     cfg = TCfg(**SMALL, **kw)
     if mode == "rgbd":
         second = torch.full_like(R, 5.0)       # a depth map: a wall at 5 m
         run = lambda s, i: frontend.step_lanes_rgbd(
             s, L[:, i], second[:, i], TCAM, cfg, per_direction=per_direction)
     else:
+        tp = ((mesh.get_group("model"), 1) if mode == "sharded_tp_step"
+              else None)
         run = lambda s, i: batched.vo_step_batched(
-            s, L[:, i], R[:, i], TCAM, cfg, per_direction=per_direction)
+            s, L[:, i], R[:, i], TCAM, cfg, per_direction=per_direction,
+            tp=tp)
     state = batched.init_batched_state(cfg, 1, device="cpu")
-    n = 3 if mode == "window_refiner" else 1
+    windowed = mode in ("window_refiner", "sharded_ba", "sharded_refiner")
+    n = 3 if windowed else 1
     kfs = []
     for i in range(n):
         state, tel = run(state, i)
         kfs.append((tel.Tfw[0], *(type(x)(*[f[0] for f in x])
                                   for x in (state.prev_points,
                                             state.prev_lines))))
-    if mode == "window_refiner":
+    if windowed:
         win = twin.stack_keyframes(kfs)
+    if mode == "window_refiner":
         go = lambda: twin.refine_window_auto(win, TCAM, cfg, n_iters=2)
+    elif mode == "sharded_ba":
+        prob = twin.build_problem_tracks(win, TCAM, cfg)
+        solver = ba.make_sharded_ba(mesh, TCAM, n_iters=2, has_lines=True)
+        go = lambda: solver(se3.inverse_se3(win.Tfw), prob.X, prob.obs,
+                            prob.mask, prob.sigma2, prob.Xl, prob.obs_l,
+                            prob.mask_l, prob.sigma2_l)
+    elif mode == "sharded_refiner":
+        go = lambda: twin.make_sharded_window_refiner(
+            mesh, TCAM, cfg, n_iters=2, has_lines=True)(win)
     else:
         go = lambda: run(state, n)
     go()
     audit = _HostAudit()
-    uploads = []
+    uploads, calls = [], []
     real = torch.from_numpy
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(torch, "from_numpy",
                    lambda *a: uploads.append(a) or real(*a))
+        if mode in AUDIT_COLLECTIVES:
+            import torch.distributed as dist
+            name, n_calls = AUDIT_COLLECTIVES[mode]
+            real_c = getattr(dist, name)
+            mp.setattr(dist, name, lambda *a, **k: calls.append(name)
+                       or real_c(*a, **k))
         with audit:
             go()
     assert not audit.found, audit.found
     assert not uploads
+    if mode in AUDIT_COLLECTIVES:
+        assert calls and len(calls) == (n_calls or len(calls)), calls
+
+
+def test_program_refuses_to_outlive_its_group(gloo_world):
+    """A program whose body runs collectives (here the sharded BA) raises
+    once its process group is destroyed, before it runs anything: a
+    graph that replayed then would use a freed communicator."""
+    import torch.distributed as dist
+    from stvo_pl_tpu_torch.parallel import ba
+    rng = np.random.default_rng(0)
+    K, N = 3, 8
+    poses = torch.eye(4).repeat(K, 1, 1)
+    X = torch.from_numpy(rng.uniform(-1, 1, (N, 3)).astype(np.float32))
+    X[:, 2] += 6.0
+    obs = torch.from_numpy(rng.uniform(0, 200, (N, K, 3)).astype(np.float32))
+    mask = torch.ones((N, K), dtype=torch.bool)
+    sigma2 = torch.ones(N)
+    solver = ba.make_sharded_ba(gloo_world, TCAM, n_iters=1)
+    assert solver.groups
+    first = solver(poses, X, obs, mask, sigma2)
+    assert all(bool(torch.isfinite(t).all()) for t in first)
+    dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="outlived its process group"):
+        solver(poses, X, obs, mask, sigma2)
 
 
 # ---------------------------------------------------------------------------
@@ -387,18 +471,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", list(GPU_MODES))
-def test_graph_equals_eager_on_the_card(cuda, mode):
-    """Two lanes of the port's renderer at 240x180, 4 frames: the replayed
-    graph `torch.equal` to the eager step (EDLines within 1e-3 m: its
-    moment sums are float atomics), and a replay leaves the kernel
-    wrappers' counts as they were."""
-    from stvo_pl_tpu_torch.models import frontend
+def _card_lanes(cuda, n: int):
+    """Two lanes (scenes of seeds 0 and 7) of the port's renderer at
+    240x180 on the card, n frames: left, right and depth [2, n, H, W]."""
     from stvo_pl_tpu_torch.utils import synthetic
-    kw, per_direction = GPU_MODES[mode]
-    cfg = TCfg(**SMALL, **kw)
-    n = 4
     poses = synthetic.smooth_trajectory(n, speed=0.25, device=cuda)
     L, R, D = [], [], []
     for seed in (0, 7):
@@ -409,7 +485,21 @@ def test_graph_equals_eager_on_the_card(cuda, mode):
         L.append(left)
         R.append(right)
         D.append(synthetic.render_depth(scene, poses, TCAM))
-    L, R, D = torch.stack(L), torch.stack(R), torch.stack(D)
+    return torch.stack(L), torch.stack(R), torch.stack(D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", list(GPU_MODES))
+def test_graph_equals_eager_on_the_card(cuda, mode):
+    """Two lanes of the port's renderer at 240x180, 4 frames: the replayed
+    graph `torch.equal` to the eager step (EDLines within 1e-3 m: its
+    moment sums are float atomics), and a replay leaves the kernel
+    wrappers' counts as they were."""
+    from stvo_pl_tpu_torch.models import frontend
+    kw, per_direction = GPU_MODES[mode]
+    cfg = TCfg(**SMALL, **kw)
+    n = 4
+    L, R, D = _card_lanes(cuda, n)
     rgbd = mode == "rgbd"
     second = D if rgbd else R
     if rgbd:
@@ -484,3 +574,83 @@ def test_replay_after_the_caches_are_cleared(cuda):
         s_e, t_e = batched.vo_step_batched(s_e, L[i], R[i], TCAM, TCFG)
         assert _equal((s_c, t_c), (s_e, t_e)), i
     del junk
+
+
+@pytest.mark.gpu
+def test_sharded_programs_replay_on_the_card(cuda):
+    """In an NCCL world of one (parallel.mesh.init_distributed without
+    torchrun's environment): the sharded step, the step with every
+    matcher column-sharded over a model group of 1 (`tp=(group, 1)`: its
+    all-gathers captured), the sharded BA and the sharded window refiner
+    replay `torch.equal` to their eager bodies and to the unsharded
+    programs (`compile_vo_step`, `ba_solve`, `compile_refiner`); every
+    program is dropped and the device synchronized before the group is
+    destroyed."""
+    import gc
+    import torch.distributed as dist
+    from stvo_pl_tpu_torch.ops import se3
+    from stvo_pl_tpu_torch.parallel import ba, compiled
+    from stvo_pl_tpu_torch.parallel import mesh as mesh_mod
+    assert not dist.is_initialized(), "a process group leaked into the test"
+    L, R, _ = _card_lanes(cuda, 3)
+    step = tp_step = plain = solver = refine = plain_refine = prog = None
+    mesh_mod.init_distributed(device_type="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = mesh_mod.make_mesh(device_type="cuda")
+        group = mesh.get_group("model")
+        cfg_tp = TCfg(**SMALL, tp_min_features=16)
+        step, place = batched.make_sharded_vo_step(mesh, TCAM, TCFG)
+        tp_step = compiled.Compiled(
+            lambda s, a, b: batched.vo_step_batched(s, a, b, TCAM, cfg_tp,
+                                                    tp=(group, 1)),
+            cuda, groups=(group,))
+        plain = batched.compile_vo_step(TCAM, TCFG, 2, device=cuda)
+        assert isinstance(step, compiled.Compiled)
+        runs = {name: [] for name in ("step", "fn", "tp", "tp_fn", "plain")}
+        for name, f in (("step", step), ("fn", step.fn), ("tp", tp_step),
+                        ("tp_fn", tp_step.fn), ("plain", plain)):
+            s = place(batched.init_batched_state(TCFG, 2, device=cuda),
+                      L[:, 0], R[:, 0])[0]
+            for i in range(3):
+                s, t = f(s, L[:, i].contiguous(), R[:, i].contiguous())
+                runs[name].append((s, t))
+        for name in ("step", "fn", "tp", "tp_fn"):
+            assert all(_equal(a, b) for a, b in zip(runs[name],
+                                                    runs["plain"])), name
+        assert step.programs and tp_step.programs
+        for prog in (*step.programs.values(), *tp_step.programs.values()):
+            assert prog.graph is not None and prog.replays == 3
+
+        # a 3-keyframe window of lane 0
+        kfs = [(t.Tfw[0], *(type(x)(*[f[0] for f in x])
+                            for x in (s.prev_points, s.prev_lines)))
+               for s, t in runs["plain"]]
+        del runs
+        win = twin.stack_keyframes(kfs)
+        prob = twin.build_problem_tracks(win, TCAM, TCFG)
+        poses_cw = se3.inverse_se3(win.Tfw)
+        solver = ba.make_sharded_ba(mesh, TCAM, n_iters=4, has_lines=True)
+        args = (poses_cw, prob.X, prob.obs, prob.mask, prob.sigma2, prob.Xl,
+                prob.obs_l, prob.mask_l, prob.sigma2_l)
+        want = ba.ba_solve(poses_cw, prob, TCAM, n_iters=4)
+        for _ in range(2):
+            assert _equal(solver(*args), want)
+        assert _equal(solver.fn(*args), want)
+        refine = twin.make_sharded_window_refiner(mesh, TCAM, TCFG,
+                                                  n_iters=4, has_lines=True)
+        plain_refine = twin.compile_refiner(TCAM, TCFG, n_iters=4,
+                                            auto=False, device=cuda)
+        want = plain_refine(win)
+        for _ in range(2):
+            assert _equal(refine(win), want)
+        assert _equal(refine.fn(win), want)
+        for prog in (*solver.programs.values(), *refine.programs.values()):
+            assert prog.graph is not None and prog.replays == 2
+    finally:
+        # every program (and the loop's last _Program) let go of first
+        step = tp_step = plain = solver = refine = plain_refine = None
+        prog = None
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()

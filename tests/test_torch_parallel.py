@@ -281,9 +281,12 @@ def test_sharded_ba_against_jax_and_ba_solve(world2, kind):
 
 
 def test_sharded_ba_rejects_uneven_landmarks(world2):
+    """The compiled solver raises on the first call, and again on the
+    next."""
     for out in world2:
-        assert "63 point landmarks do not split over 2" in str(
-            out["ba_uneven_error"])
+        assert len(out["ba_uneven_error"]) == 2
+        for msg in out["ba_uneven_error"]:
+            assert "63 point landmarks do not split over 2" in str(msg)
 
 
 @pytest.mark.parametrize("kind", ["points", "lines"])
@@ -305,6 +308,47 @@ def test_sharded_window_refiner_matches_refine_window(world2, window_frames,
                                    rtol=1e-3)
     np.testing.assert_array_equal(world2[0][f"win_{kind}_X"],
                                   world2[1][f"win_{kind}_X"])
+
+
+# --------------------------------------------------------------------------
+# the sharded programs compiled (parallel/compiled.Compiled)
+# --------------------------------------------------------------------------
+
+# collectives in 3 calls: the data-parallel step none, the BA one
+# all-reduce per iteration, the refiner 5 all-reduces and the points'
+# all-gather; the TP step one all-gather per column-sharded matcher
+COMPILED = {"tp_step": ("world4", None), "dp_step": ("world2", 0),
+            "ba_points": ("world2", 3 * BA_ITERS),
+            "ba_lines": ("world2", 3 * BA_ITERS),
+            "win_points": ("world2", 3 * (5 + 1)),
+            "win_lines": ("world2", 3 * (5 + 1))}
+
+
+@pytest.mark.parametrize("key", list(COMPILED))
+def test_sharded_program_is_compiled_and_equals_its_body(request, key):
+    """make_sharded_vo_step's step (data-only in the world of 2, 2 x 2
+    data x model with TP in the world of 4), make_sharded_ba's solver and
+    make_sharded_window_refiner's refiner are `Compiled` programs; on the
+    CPU each runs its body on its static buffers, and each of 3
+    consecutive calls (a chained step; moved landmarks; moved keyframes)
+    equals the eager body `.fn` on the same inputs bit for bit, with the
+    same collectives."""
+    world, n = COMPILED[key]
+    for out in request.getfixturevalue(world):
+        assert bool(out[f"{key}_compiled"])
+        equal = out[f"{key}_equal_fn"]
+        assert equal.shape == (3,) and equal.all(), equal
+        n_prog, n_fn = out[f"{key}_collectives"]
+        assert n_prog == n_fn and (n_prog > 0 if n is None else n_prog == n)
+
+
+def test_group_runner_steps_through_the_compiled_step(world4):
+    """GroupRunner's step is the compiled sharded step: one program per
+    rank, every step_all equal to the step's eager body."""
+    for out in world4:
+        assert bool(out["grp_compiled"])
+        assert len(out["grp_equal_fn"]) == N_FRAMES
+        assert out["grp_equal_fn"].all()
 
 
 # --------------------------------------------------------------------------

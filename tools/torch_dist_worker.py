@@ -19,6 +19,12 @@ of JAX.  Tasks:
             count the data axis does not divide
   window    `make_sharded_window_refiner` without and with lines
   groups    a two-group `GroupRunner` and its validation errors
+
+The sharded step, BA and refiner are captured programs
+(parallel/compiled.Compiled; on the CPU they run their body eagerly on
+static buffers): each task records whether they are, and holds each of
+3 consecutive calls `torch.equal` to the program's eager body (`.fn`) on
+the same inputs, with as many collectives.
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from stvo_pl_tpu_torch import convert  # noqa: E402
 from stvo_pl_tpu_torch.config import VOConfig  # noqa: E402
 from stvo_pl_tpu_torch.models.features import LineSet, PointSet  # noqa: E402
 from stvo_pl_tpu_torch.ops import camera as cam_ops  # noqa: E402
-from stvo_pl_tpu_torch.parallel import ba, batched, groups  # noqa: E402
+from stvo_pl_tpu_torch.parallel import ba, batched, compiled  # noqa: E402
+from stvo_pl_tpu_torch.parallel import groups  # noqa: E402
 from stvo_pl_tpu_torch.parallel import mesh as mesh_mod  # noqa: E402
 from stvo_pl_tpu_torch.parallel import tp, window  # noqa: E402
 
@@ -99,6 +106,36 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _same(a, b) -> bool:
+    """Two trees of tensors (NamedTuples, tuples, None) `torch.equal` leaf
+    by leaf."""
+    la, lb = [], []
+    compiled._flatten(a, la)
+    compiled._flatten(b, lb)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def _against_fn(out, key, prog, run) -> tuple:
+    """`run(f)` makes consecutive calls of f and returns their results; it
+    runs with the program and then with its eager body.  Records whether
+    the program is a `Compiled` (key_compiled), one flag per call for
+    `torch.equal` results (key_equal_fn) and the collectives of both runs
+    (key_collectives: program, body).  Returns the program's results and
+    the collectives it called by name."""
+    runs, counts = [], []
+    for f in (prog, prog.fn):
+        with CountCollectives() as cc:
+            runs.append(run(f))
+        counts.append(cc)
+    got, want = runs
+    out[f"{key}_compiled"] = np.bool_(isinstance(prog, compiled.Compiled))
+    out[f"{key}_equal_fn"] = np.array([_same(a, b)
+                                       for a, b in zip(got, want)])
+    out[f"{key}_collectives"] = np.array([c.total for c in counts])
+    return got, counts[0].calls
+
+
 def _error(fn) -> str:
     """The message of the ValueError that fn raises ('' if none)."""
     try:
@@ -137,12 +174,22 @@ def task_tp_step(inp, out, rank, world):
     mesh = mesh_mod.make_mesh(n_data=world // 2, n_model=2,
                               device_type="cpu")
     step, place = batched.make_sharded_vo_step(mesh, TP_CAM, TP_CFG)
-    with CountCollectives() as cc:
-        s, t = step(*place(batched.init_batched_state(TP_CFG, B, "cpu"),
-                           il, ir))
-    _step_out(out, "tp_step", s, t)
-    out["tp_step_gathers"] = np.int64(cc.calls.get("all_gather_into_tensor",
-                                                   0))
+    state0, _, _ = place(batched.init_batched_state(TP_CFG, B, "cpu"), il,
+                         ir)
+    # frame f: the pair shifted f px to the left
+    frames = [[mesh_mod.data_slice(mesh, torch.roll(x, -f, dims=-1))
+               for x in (il, ir)] for f in range(3)]
+
+    def run(f):
+        state, res = state0, []
+        for img_l, img_r in frames:
+            state, t = f(state, img_l, img_r)
+            res.append((state, t))
+        return res
+
+    res, calls = _against_fn(out, "tp_step", step, run)
+    _step_out(out, "tp_step", *res[0])
+    out["tp_step_gathers"] = np.int64(calls.get("all_gather_into_tensor", 0))
     out["tp_step_lanes"] = mesh_mod.data_slice(mesh,
                                                torch.arange(B)).numpy()
     s, t = batched.vo_step_batched(batched.init_batched_state(TP_CFG, B,
@@ -156,14 +203,20 @@ def task_dp_step(inp, out, rank, world):
     B, T = seq_l.shape[:2]
     mesh = mesh_mod.make_mesh(device_type="cpu")
     step, place = batched.make_sharded_vo_step(mesh, CAM, DP_CFG)
-    state, _, _ = place(batched.init_batched_state(DP_CFG, B, "cpu"),
-                        seq_l[:, 0], seq_r[:, 0])
-    with CountCollectives() as cc:
+    state0, _, _ = place(batched.init_batched_state(DP_CFG, B, "cpu"),
+                         seq_l[:, 0], seq_r[:, 0])
+
+    def run(f):
+        state, res = state0, []
         for i in range(T):
-            state, t = step(state, mesh_mod.data_slice(mesh, seq_l[:, i]),
-                            mesh_mod.data_slice(mesh, seq_r[:, i]))
-    out["dp_collectives"] = np.int64(cc.total)
-    _step_out(out, "dp_sharded", state, t)
+            state, t = f(state, mesh_mod.data_slice(mesh, seq_l[:, i]),
+                         mesh_mod.data_slice(mesh, seq_r[:, i]))
+            res.append((state, t))
+        return res
+
+    res, calls = _against_fn(out, "dp_step", step, run)
+    out["dp_collectives"] = np.int64(sum(calls.values()))
+    _step_out(out, "dp_sharded", *res[-1])
     out["dp_lanes"] = mesh_mod.data_slice(mesh, torch.arange(B)).numpy()
     state = batched.init_batched_state(DP_CFG, B, "cpu")
     for i in range(T):
@@ -182,7 +235,17 @@ def task_ba(inp, out, rank, world):
         args = [g["poses0"], g["X"], g["obs"], g["mask"], g["sigma2"]]
         if has_lines:
             args += [g["Xl"], g["obs_l"], g["mask_l"], g["sigma2_l"]]
-        res = solver(*args)
+
+        def moved(i):
+            """The problem with every landmark moved by i cm."""
+            a = list(args)
+            for j in (1, 5) if has_lines else (1,):
+                a[j] = a[j] + 0.01 * i
+            return a
+
+        res, _ = _against_fn(out, f"ba_{kind}", solver,
+                             lambda f: [f(*moved(i)) for i in range(3)])
+        res = res[0]
         out[f"ba_{kind}_poses"] = res[0].numpy()
         out[f"ba_{kind}_X"] = res[1].numpy()
         out[f"ba_{kind}_costs"] = res[-1].numpy()
@@ -190,7 +253,8 @@ def task_ba(inp, out, rank, world):
             out[f"ba_{kind}_Xl"] = res[2].numpy()
     odd = [a[:-1] for a in args[1:5]]          # 63 of the lines problem's
     solver = ba.make_sharded_ba(mesh, BA_CAM, n_iters=1)
-    out["ba_uneven_error"] = np.array(_error(lambda: solver(args[0], *odd)))
+    out["ba_uneven_error"] = np.array([_error(lambda: solver(args[0], *odd))
+                                       for _ in range(2)])
 
 
 def task_window(inp, out, rank, world):
@@ -205,7 +269,17 @@ def task_window(inp, out, rank, world):
     for kind, has_lines in (("points", False), ("lines", True)):
         refine = window.make_sharded_window_refiner(
             mesh, CAM, cfg, n_iters=5, has_lines=has_lines)
-        T, X, costs = refine(win if has_lines else win._replace(lines=None))
+        w = win if has_lines else win._replace(lines=None)
+
+        def moved(i):
+            """The window with every keyframe moved by i cm along x."""
+            Tfw = w.Tfw.clone()
+            Tfw[:, 0, 3] += 0.01 * i
+            return w._replace(Tfw=Tfw)
+
+        res, _ = _against_fn(out, f"win_{kind}", refine,
+                             lambda f: [f(moved(i)) for i in range(3)])
+        T, X, costs = res[0]
         out[f"win_{kind}_Tfw"] = T.numpy()
         out[f"win_{kind}_X"] = X.numpy()
         out[f"win_{kind}_costs"] = costs.numpy()
@@ -238,8 +312,8 @@ def task_groups(inp, out, rank, world):
         torch.equal(a, b) for a, b in zip(state.prev_points, placed.prev_points)
     ) and torch.equal(state.Tfw, placed.Tfw))
     states = [None, None]
-    states[i] = state
-    n_lines, good = [], []
+    states[i] = fn_state = state
+    n_lines, good, equal = [], [], []
     with CountCollectives() as cc:
         for f in range(seq_l.shape[0]):
             imgs = [None, None], [None, None]
@@ -250,7 +324,15 @@ def task_groups(inp, out, rank, world):
             n_lines.append(int(telems[i].n_lines.max()))
             good.append(bool(telems[i].good.all()))
             assert telems[other] is None and states[other] is None
+            # the compiled step against its eager body
+            fn_state, fn_t = runner._step.fn(fn_state, imgs[0][i],
+                                             imgs[1][i])
+            equal.append(_same((states[i], telems[i]), (fn_state, fn_t)))
     out["grp_collectives"] = np.int64(cc.total)
+    out["grp_compiled"] = np.bool_(
+        isinstance(runner._step, compiled.Compiled)
+        and len(runner._step.programs) == 1)
+    out["grp_equal_fn"] = np.array(equal)
     out["grp_n_lines"] = np.array(n_lines)
     out["grp_good"] = np.array(good)
     out["grp_lanes"] = np.int64(states[i].Tfw.shape[0])
