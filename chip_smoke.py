@@ -65,7 +65,18 @@ their eager runs; vo_edlines holds its compiled step to the eager one
 by its own rule; cli_ba runs the CLI compiled (its default on the card)
 and the same CLI eagerly, poses, refined poses and ATEs equal; ba_graph
 refines the ba_popcount window with the compiled and the eager refiner
-in turns.  Every phase prints one JSON line; any
+in turns; ops_graph takes the compiled counterparts of the JAX package's
+other jitted entry points at full width (the one-lane RGB-D step over
+the rgbd phase's frames, ba_solve on the ba_popcount window, the binary
+matcher's three forms with both distance routes on its index, both line
+detectors with two values of min_length, select_keypoints,
+orient_and_describe, compute_lbd, compute_lbd_atlas and build_pyramid on
+the 16 images of two frames), each against eager on every input
+(EDLines by its set rule) and in turns with it, its graph's wrapper
+nodes equal to eager's launches, one program at a time.  The kernel
+table's ops_graph_launches gives those graphs' launches of each kernel,
+beside the launches of its own path.
+Every phase prints one JSON line; any
 failed check exits non-zero.  The last three lines are the kernel table
 (with each kernel's launches per phase), the card's name and power
 limit, and the result line.
@@ -783,7 +794,9 @@ def edlines_phase(drive, check, capture, seq_l, depth0, cam,
 
 
 def _leaves(tree) -> list:
-    """Every tensor of a (nested) NamedTuple."""
+    """Every tensor of a (nested) NamedTuple; None leaves are skipped."""
+    if tree is None:
+        return []
     if isinstance(tree, tuple):
         return [x for f in tree for x in _leaves(f)]
     return [tree]
@@ -1328,6 +1341,209 @@ def replayed(graphs: list, wrappers: dict, since: list) -> dict:
         for k in wrappers:
             out[k] += g["nodes"][k] * (g["prog"].replays - r0)
     return out
+
+
+def ops_graph_entries(cam, cfg, cfg_rgbd, seq_l, seq_r, depth0,
+                      rgbd_states, index, queries, win) -> list:
+    """ops_graph_phase's entries at full width, one per compiled
+    counterpart of a jitted entry point of the JAX package: the one-lane
+    RGB-D step over the rgbd phase's frames (from each eager step's
+    incoming state); ba_solve (8 iterations) on the ba_popcount window's
+    problem, its poses as built and perturbed; the binary matcher's three
+    forms with both distance routes on the binary_matcher phase's index
+    (two query sets, validity masks for the masked forms); both line
+    detectors and, on their outputs, the operators of the front end on
+    the 16 images (8 lanes x 2 eyes) of frames 0 and 1 at VOConfig()'s
+    widths (1200 ORB corners, 300 lines), the detectors with the image
+    of frame 0 and two values of min_length."""
+    from stvo_pl_tpu_torch.models import frontend
+    from stvo_pl_tpu_torch.ops import binary_matcher as bm
+    from stvo_pl_tpu_torch.ops import edline, fast, image, lbd, lsd, orb, se3
+    from stvo_pl_tpu_torch.parallel import ba, window
+
+    dev = seq_l.device
+    H, W = cam.height, cam.width
+    imgs = [torch.cat([seq_l[:, i], seq_r[:, i]]).contiguous()
+            for i in (0, 1)]                                # [16, H, W]
+    min_len = cfg.min_line_length * min(W, H)
+    mins = [torch.tensor(min_len, device=dev),
+            torch.tensor(2.0 * min_len, device=dev)]
+    det = dict(capacity=cfg.line_capacity, n_dirs=cfg.lsd_n_dirs,
+               ang_th_deg=cfg.lsd_ang_th, quant=cfg.lsd_quant,
+               density_th=cfg.lsd_density_th)
+    scores = [fast.fast_score(x, float(cfg.orb_fast_th)) for x in imgs]
+    n_kp = cfg.orb_nfeatures
+    uvs = [fast.select_keypoints(sc, n_kp)[0] for sc in scores]
+    blurs = [image.gaussian_blur(x, 2.0, radius=3) for x in imgs]
+    lbd_calls = []
+    for x in imgs:
+        gx, gy = image.sobel(x)
+        segs = lsd.detect_line_segments(x, min_len, **det)
+        lbd_calls.append((gx, gy, segs.sp, segs.ep))
+    zero = torch.zeros((len(imgs[0]), cfg.line_capacity), dtype=torch.int32,
+                       device=dev)
+    atlas_calls = [(torch.stack([gx, gy], -1), sp, ep, zero, zero,
+                    zero + (W - 1), zero + (H - 1))
+                   for gx, gy, sp, ep in lbd_calls]
+    prob = window.build_problem_tracks(win, cam, cfg)
+    poses = se3.inverse_se3(win.Tfw)
+    xi = torch.tensor([0.02, -0.01, 0.03, 0.002, -0.001, 0.0015],
+                      device=dev).expand(len(poses), 6).clone()
+    xi[0] = 0.0
+    ba_calls = [(poses, prob), (se3.mm(se3.expmap_se3(xi), poses), prob)]
+    nf = len(rgbd_states)
+    entries = [
+        ("vo_step_rgbd",
+         lambda: frontend.compile_vo_step_rgbd(cam, cfg_rgbd),
+         lambda s, img, d: frontend.vo_step_rgbd(s, img, d, cam, cfg_rgbd),
+         [(rgbd_states[i], seq_l[0, i].contiguous(), depth0[i])
+          for i in range(nf)], 1, "equal"),
+        ("ba_solve", lambda: ba.compile_ba_solve(cam, n_iters=8),
+         lambda p, pr: ba.ba_solve(p, pr, cam, n_iters=8), ba_calls, 3,
+         "equal")]
+    for use_mxu in (False, True):
+        route = "popcount" if not use_mxu else "bf16"
+        entries += [
+            (f"knn_match_{route}",
+             lambda u=use_mxu: bm.compile_knn_match(2, use_mxu=u),
+             lambda q, i, v, u=use_mxu: bm.knn_match(q, i, 2, v, use_mxu=u),
+             [(q, index, v) for q, v in queries], 5, "equal"),
+            (f"match_{route}", lambda u=use_mxu: bm.compile_match(use_mxu=u),
+             lambda q, i, u=use_mxu: bm.match(q, i, use_mxu=u),
+             [(q, index) for q, _ in queries], 5, "equal"),
+            (f"radius_match_{route}",
+             lambda u=use_mxu: bm.compile_radius_match(40, 4, use_mxu=u),
+             lambda q, i, v, u=use_mxu: bm.radius_match(q, i, 40, 4, v,
+                                                        use_mxu=u),
+             [(q, index, v) for q, v in queries], 5, "equal")]
+    for gen, pd in (("all_direction", False), ("per_direction", True)):
+        entries.append((
+            f"detect_line_segments_{gen}",
+            lambda pd=pd: lsd.compile_detect_line_segments(per_direction=pd,
+                                                           **det),
+            lambda x, m, pd=pd: lsd.detect_line_segments(
+                x, m, per_direction=pd, **det),
+            [(imgs[0], m) for m in mins], 2, "equal"))
+    entries += [
+        ("detect_edlines",
+         lambda: edline.compile_detect_edlines(capacity=cfg.line_capacity),
+         lambda x, m: edline.detect_edlines(x, m,
+                                            capacity=cfg.line_capacity),
+         [(imgs[0], m) for m in mins], 2, "edlines"),
+        ("select_keypoints", lambda: fast.compile_select_keypoints(n_kp),
+         lambda sc, o: fast.select_keypoints(sc, n_kp, offset_src=o),
+         [(sc, sc) for sc in scores], 5, "equal"),
+        ("orient_and_describe", orb.compile_orient_and_describe,
+         orb.orient_and_describe, list(zip(imgs, blurs, uvs)), 5, "equal"),
+        ("compute_lbd", lbd.compile_compute_lbd, lbd.compute_lbd, lbd_calls,
+         5, "equal"),
+        ("compute_lbd_atlas", lbd.compile_compute_lbd_atlas,
+         lbd.compute_lbd_atlas, atlas_calls, 5, "equal"),
+        ("build_pyramid",
+         lambda: image.compile_build_pyramid(cfg.orb_nlevels,
+                                             cfg.orb_scale_factor),
+         lambda x: tuple(image.build_pyramid(x, cfg.orb_nlevels,
+                                             cfg.orb_scale_factor)),
+         [(x,) for x in imgs], 5, "equal")]
+    return entries
+
+
+def ops_graph_phase(entries: list, wrappers: dict, smi: str) -> dict:
+    """The compiled counterparts of the JAX package's remaining jitted
+    entry points, one at a time: each entry is (name, make, eager, calls,
+    reps, rule), `make()` building the program (a
+    parallel.compiled.Compiled), `calls` two or more argument tuples of
+    one static key.  Per entry: eager's answers and the kernel wrappers'
+    launches of those calls; the program's first call (warm-up, capture,
+    one replay; its graph kept and read); one replay per call, each held
+    to eager's answer (`torch.equal`, or with rule "edlines" EDLines' set
+    rule: per image the counts within 1 and >= 90% of the segments
+    shared within 0.5 px); the graph's wrapper nodes times the calls
+    equal to eager's launches; eager and graph in turns (eager, graph,
+    eager, graph; `reps` passes over the calls each), ms per call.  The
+    program is dropped and its pool released before the next one.
+    Returns per entry its numbers, and in "launches" the graphs' launches
+    per kernel wrapper (their wrappers' calls in warm-up and capture, and
+    kernel nodes times replays)."""
+    import gc
+    import types
+
+    sync = torch.cuda.synchronize
+    out, total = {}, dict.fromkeys(wrappers, 0)
+    t_phase = time.perf_counter()
+    for name, make, eager, calls, reps, rule in entries:
+        for w in wrappers.values():
+            w.launches = 0
+        want = [eager(*a) for a in calls]
+        sync()
+        eager_launches = {k: w.launches for k, w in wrappers.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        g = first_call(make(), *calls[0])
+        prog = g["fn"]
+        captured = {k: w.launches for k, w in wrappers.items()}
+        got = [prog(*a) for a in calls]
+        sync()
+        sets = []        # EDLines: (line count diff, shared) per image
+        for i, (a, b) in enumerate(zip(got, want)):
+            if rule == "edlines":
+                seg = lambda x, n: types.SimpleNamespace(
+                    sp=x.sp[n].cpu().numpy(), ep=x.ep[n].cpu().numpy(),
+                    valid=x.valid[n].cpu().numpy())
+                for n in range(a.valid.shape[0]):
+                    ga, gb = seg(a, n), seg(b, n)
+                    diff = int(ga.valid.sum()) - int(gb.valid.sum())
+                    shared = shared_fraction(ga, gb)
+                    sets.append((diff, shared))
+                    require(abs(diff) <= 1 and shared >= 0.9,
+                            f"ops_graph {name}: call {i} image {n}: "
+                            f"{diff:+d} lines against eager, {shared:.3f} "
+                            f"shared within 0.5 px")
+            else:
+                require(same(a, b), f"ops_graph {name}: replay {i} differs "
+                        f"from eager")
+        per_call = {k: g["nodes"][k] * len(calls) for k in wrappers}
+        require(per_call == eager_launches and not any(
+            w.launches != captured[k] for k, w in wrappers.items()),
+            f"ops_graph {name}: the graph's kernel wrapper nodes times "
+            f"{len(calls)} calls, {per_call}, against eager's launches "
+            f"{eager_launches}")
+        ms = {"eager": [], "graph": []}
+        for _ in range(2):
+            for kind, fn in (("eager", eager), ("graph", prog)):
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    for a in calls:
+                        fn(*a)
+                sync()
+                ms[kind].append((time.perf_counter() - t0) * 1e3
+                                / (reps * len(calls)))
+        p = g["prog"]
+        launches = {k: captured[k] + g["nodes"][k] * p.replays
+                    for k in wrappers}
+        for k in wrappers:
+            total[k] += launches[k]
+        out[name] = dict(
+            calls=len(calls), capture_s=g["capture_s"],
+            first_call_bytes=g["first_call_bytes"],
+            graph_kernel_nodes=g["kernel_nodes"], node_kinds=g["node_kinds"],
+            eager_launches_per_call={k: n / len(calls) for k, n in
+                                     eager_launches.items() if n},
+            ms_eager=ms["eager"], ms_graph=ms["graph"],
+            eager_over_graph=min(ms["eager"]) / min(ms["graph"]),
+            replays=p.replays, launches={k: n for k, n in launches.items()
+                                         if n},
+            equal_to_eager=rule if rule == "edlines" else True,
+            **(dict(max_line_count_diff=max(abs(d) for d, _ in sets),
+                    min_shared_0p5px=min(x for _, x in sets))
+               if sets else {}))
+        del g, prog, p, got, want
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+    return dict(entries=out, launches=total, card=smi,
+                seconds=time.perf_counter() - t_phase)
 
 
 def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
@@ -2192,16 +2408,25 @@ def main() -> None:
          queries=n_query, equal_to_bf16_product=True, planted_found=100,
          in_radius_40=int((res[False][2].idx >= 0).sum()),
          seconds_6_calls=matcher_s)
-    del res, index, query, descs
+    # ops_graph's second queries: the 10th step's lines; validity masks
+    # for the masked forms (the planted rows valid)
+    qd2, qv2 = line_log[steps_in_index + 1]
+    query2 = torch.where(qv2[..., None], qd2,
+                         words(*qd2.shape)).reshape(-1, 8)
+    q_valid = qv.reshape(-1).clone()
+    q_valid[:100] = True
+    queries = [(query, q_valid), (query2, qv2.reshape(-1))]
+    del res, descs
 
     # ---- 6c. RGB-D: lane 0 with the renderer's depth maps --------------
     cfg_rgbd = VOConfig(rgbd_max_depth=200.0)     # the scene reaches 95 m
     for w in wrappers.values():
         w.launches = 0
     state = frontend.init_state(cfg_rgbd)
-    rgbd_tels, rgbd_ls, rgbd_pt = [], 0, 0
+    rgbd_tels, rgbd_ls, rgbd_pt, rgbd_states = [], 0, 0, []
     t0 = time.perf_counter()
     for i in range(nf):
+        rgbd_states.append(state)
         state, t = frontend.vo_step_rgbd(state, seq_l[0, i].contiguous(),
                                          depth0[i], cam, cfg_rgbd)
         rgbd_tels.append(t)
@@ -2330,7 +2555,15 @@ def main() -> None:
     # ---- 7c'. the same window through the compiled refiner --------------
     r_bag = ba_graph_phase(win, cam, cfg, smi)
     emit("ba_graph", **r_bag)
-    del win
+
+    # ---- 7c''. the other jitted entry points as compiled programs ------
+    ops_entries = ops_graph_entries(
+        cam, cfg, cfg_rgbd, seq_l, seq_r, depth0, rgbd_states, index,
+        queries, win)
+    del win, index, query, queries, rgbd_states
+    r_ops = ops_graph_phase(ops_entries, wrappers, smi)
+    emit("ops_graph", **r_ops)
+    del ops_entries
 
     # ---- 7d. the sharded step, BA and refiner in an NCCL world of one --
     r_sh = sharded_phase(street, cam, cfg, seq_l, seq_r, wrappers, smi)
@@ -2370,7 +2603,8 @@ def main() -> None:
     # each kernel's launches come from the phase whose path runs it;
     # "phases" lists its launches in every phase that ran it
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "phases")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "phases",
+            "ops_graph_launches")
     phase_launches = {
         "vo_points_only": r_pts["launches"], "vo": r_main["launches"],
         "vo_dense_all_direction": r_dense["all_direction"]["launches"],
@@ -2394,12 +2628,16 @@ def main() -> None:
         "ba_graph": {"hamming_matrix_popc":
                      r_bag["b5_launches_per_window"]},
         "profiling_graph": r_prof["graph"]["launches"],
+        "ops_graph": r_ops["launches"],
         **{f"profiling_graph_{k}": o["launches"]
            for k, o in r_prof["replays_traced"].items()}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
               (b4, r_dense["per_direction"]), (b5, r_popc)]
+    # `launches`: the kernel's path's own run, counts zeroed just before;
+    # `ops_graph_launches`: the ops_graph phase's graphs (no check reads it)
     table = [{k: row[k] for k in keys} for row in
              (dict(r, launches=run["launches"][r["name"]],
+                   ops_graph_launches=r_ops["launches"][r["name"]],
                    phases={ph: n[r["name"]] for ph, n in
                            phase_launches.items()
                            if n.get(r["name"], 0) > 0})

@@ -32,7 +32,7 @@ from stvo_pl_tpu_torch.models.features import (LineMatches, LineSet,
                                                empty_lines, empty_points)
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import linalg, matching, se3
-from stvo_pl_tpu_torch.parallel.compiled import Compiled
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 _sel = optimizer._sel
 
@@ -339,10 +339,18 @@ def compile_vo_step(cam: cam_ops.StereoCamera, cfg: VOConfig,
     caller asks for the CPU): `step(state, img_l, img_r) -> (state,
     telemetry)`, equal to `vo_step` bit for bit; the returned tensors
     belong to the caller (parallel/compiled.py)."""
-    def step(state, img_l, img_r):
-        return vo_step(state, img_l, img_r, cam, cfg,
-                       per_direction=per_direction)
-    return Compiled(step, device)
+    return compile_fn(vo_step, ("state", "img_l", "img_r"), device,
+                      cam=cam, cfg=cfg, per_direction=per_direction)
+
+
+def compile_vo_step_rgbd(cam: cam_ops.StereoCamera, cfg: VOConfig,
+                         per_direction: bool = False,
+                         device=None) -> Compiled:
+    """`vo_step_rgbd` (one lane) as a captured program on `device`
+    ("cuda" unless the caller asks for the CPU): `step(state, img, depth)
+    -> (state, telemetry)`, equal to `vo_step_rgbd` bit for bit."""
+    return compile_fn(vo_step_rgbd, ("state", "img", "depth"), device,
+                      cam=cam, cfg=cfg, per_direction=per_direction)
 
 
 def vo_scan(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 from stvo_pl_tpu_torch.device import resolve_device
 from stvo_pl_tpu_torch.ops import hamming
 from stvo_pl_tpu_torch.ops.lsd import top_k
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 INVALID_DIST = 257   # > the largest Hamming distance of 256-bit strings
 
@@ -124,3 +125,30 @@ def radius_match(query: torch.Tensor, index: DescriptorIndex,
         dist=torch.where(ok, res.dist, INVALID_DIST),
         image_id=torch.where(ok, res.image_id, -1),
         local_id=torch.where(ok, res.local_id, -1))
+
+
+# the matchers as captured programs (parallel/compiled.py), the
+# counterparts of the JAX package's jitted `knn_match`, `match` and
+# `radius_match`: `prog(query, index[, q_valid])` equals the eager call
+# bit for bit, one graph per query and index shape
+
+def compile_knn_match(k: int, use_mxu: bool = True,
+                      device=None) -> Compiled:
+    """`knn_match` with `k` and `use_mxu` fixed."""
+    return compile_fn(knn_match, ("query", "index", "q_valid"), device,
+                      k=k, use_mxu=use_mxu)
+
+
+def compile_match(use_mxu: bool = True, device=None) -> Compiled:
+    """`match` with `use_mxu` fixed."""
+    return compile_fn(match, ("query", "index", "q_valid"), device,
+                      use_mxu=use_mxu)
+
+
+def compile_radius_match(max_distance: int, max_results: int,
+                         use_mxu: bool = True, device=None) -> Compiled:
+    """`radius_match` with `max_distance`, `max_results` and `use_mxu`
+    fixed."""
+    return compile_fn(radius_match, ("query", "index", "q_valid"), device,
+                      max_distance=max_distance, max_results=max_results,
+                      use_mxu=use_mxu)

@@ -43,6 +43,7 @@ import torch
 from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops.image import gaussian_blur, sobel
 from stvo_pl_tpu_torch.ops.lsd import LineSegments, top_k
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 _N8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0), (1, 1))
 
@@ -120,7 +121,7 @@ def _fit(m: dict) -> dict:
             "lam1": lam1, "lam2": lam2}
 
 
-def detect_edlines(img: torch.Tensor, min_length: float,
+def detect_edlines(img: torch.Tensor, min_length,
                    capacity: int = 300, grad_th: float = 20.0,
                    anchor_th: float = 8.0, ang_tol_deg: float = 20.0,
                    min_support: int = 10, straight_tol: float = 0.1,
@@ -132,7 +133,8 @@ def detect_edlines(img: torch.Tensor, min_length: float,
                    smooth_sigma: float = 1.0,
                    node_capacity: int = 16384) -> LineSegments:
     """Detect line segments in [N, H, W] float32 images; returns
-    LineSegments with leaves [N, capacity, ...].
+    LineSegments with leaves [N, capacity, ...].  min_length: a number or
+    a 0-d tensor (as the compiled program takes it).
 
     grad_th / anchor_th follow EDLine's gradient / anchor thresholds;
     n_rounds bounds the chaining diameter; split_rounds recursively cuts
@@ -324,3 +326,16 @@ def detect_edlines(img: torch.Tensor, min_length: float,
                         length=torch.where(valid, length, zero),
                         resp=take(smag) * valid,
                         valid=valid)
+
+
+def compile_detect_edlines(device=None, **static) -> Compiled:
+    """`detect_edlines` as a captured program on `device` ("cuda" unless
+    the caller asks for the CPU): `prog(img, min_length)`, `min_length` a
+    0-d float32 tensor (traced in the JAX package); `static`: its other
+    keyword arguments, fixed for the program's life (the JAX package
+    traces the float thresholds too: here another value is another
+    program).  On the CPU equal to the eager call bit for bit; on the card
+    the moments are atomic float sums, so two runs agree as a set of
+    segments (ROADMAP "Documented divergences", EDLines)."""
+    return compile_fn(detect_edlines, ("img", "min_length"), device,
+                      **static)

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from stvo_pl_tpu_torch.device import const
 from stvo_pl_tpu_torch.ops.image import box_filter, maxpool3, sobel
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 # 16-pixel Bresenham circle of radius 3, in contiguous angular order: (dy, dx)
 CIRCLE = np.array([
@@ -175,6 +176,15 @@ def select_keypoints(score: torch.Tensor, capacity: int, edge: int = 16,
         top = F.pad(top, (0, pad))
         valid = F.pad(valid, (0, pad))
     return uv, top, valid
+
+
+def compile_select_keypoints(capacity: int, edge: int = 16, cell: int = 4,
+                             device=None) -> Compiled:
+    """`select_keypoints` as a captured program on `device` ("cuda"
+    unless the caller asks for the CPU): `prog(score[, offset_src])`,
+    equal to the eager call bit for bit."""
+    return compile_fn(select_keypoints, ("score", "offset_src"), device,
+                      capacity=capacity, edge=edge, cell=cell)
 
 
 def detect_keypoints(img: torch.Tensor, threshold, capacity: int,

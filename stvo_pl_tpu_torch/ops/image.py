@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from stvo_pl_tpu_torch.device import device_cache
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 
 def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
@@ -192,6 +193,21 @@ def build_pyramid(img: torch.Tensor, n_levels: int,
         cur = resize_bilinear(cur, nh, nw)
         levels.append(cur)
     return levels
+
+
+def _pyramid_tuple(img: torch.Tensor, n_levels: int,
+                   scale_factor: float) -> tuple[torch.Tensor, ...]:
+    return tuple(build_pyramid(img, n_levels, scale_factor))
+
+
+def compile_build_pyramid(n_levels: int, scale_factor: float,
+                          device=None) -> Compiled:
+    """`build_pyramid` as a captured program on `device` ("cuda" unless
+    the caller asks for the CPU): `prog(img)` -> the levels as a tuple
+    (a program returns tuples, not lists), each equal to the eager
+    level bit for bit."""
+    return compile_fn(_pyramid_tuple, ("img",), device, n_levels=n_levels,
+                      scale_factor=scale_factor)
 
 
 def box_filter(img: torch.Tensor, radius: int) -> torch.Tensor:

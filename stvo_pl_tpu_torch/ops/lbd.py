@@ -22,6 +22,7 @@ import torch
 from stvo_pl_tpu_torch.device import device_cache
 from stvo_pl_tpu_torch.ops.lsd import linspace01, norm2
 from stvo_pl_tpu_torch.ops.orb import _pack_words
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 N_BANDS = 9
 BAND_W = 7           # widthOfBand_ = 7 (descriptor_custom.hpp:189-213)
@@ -148,6 +149,26 @@ def compute_lbd_atlas(g2: torch.Tensor, sp: torch.Tensor, ep: torch.Tensor,
                         y_hi[..., None, None])
           + y_off.to(torch.int64)[..., None, None])
     return _lbd_from_taps(_gather_taps(g2, yi, xi), dl, do)
+
+
+def compile_compute_lbd(n_samples: int = N_SAMPLES,
+                        device=None) -> Compiled:
+    """`compute_lbd` as a captured program on `device` ("cuda" unless the
+    caller asks for the CPU): `prog(gx, gy, sp, ep) -> (desc_f, desc_b)`,
+    equal to the eager call bit for bit."""
+    return compile_fn(compute_lbd, ("gx", "gy", "sp", "ep"), device,
+                      n_samples=n_samples)
+
+
+def compile_compute_lbd_atlas(n_samples: int = N_SAMPLES,
+                              device=None) -> Compiled:
+    """`compute_lbd_atlas` as a captured program on `device` ("cuda"
+    unless the caller asks for the CPU): `prog(g2, sp, ep, x_off, y_off,
+    x_hi, y_hi) -> (desc_f, desc_b)`, equal to the eager call bit for
+    bit."""
+    return compile_fn(compute_lbd_atlas,
+                      ("g2", "sp", "ep", "x_off", "y_off", "x_hi", "y_hi"),
+                      device, n_samples=n_samples)
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from stvo_pl_tpu_torch.device import const, device_cache
 from stvo_pl_tpu_torch.ops import lsd_kernel
 from stvo_pl_tpu_torch.ops.image import gaussian_blur
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 _PI = float(np.float32(np.pi))
 
@@ -68,10 +69,13 @@ def direction_steps(n_dirs: int) -> list[tuple[int, int]]:
     return [DIR_STEPS[i] for i in idx]
 
 
-def _f32(v: float) -> float:
+def _f32(v):
     """A Python scalar rounded to float32, so that comparing or combining
     it with a float32 tensor means the same whatever width the scalar is
-    carried in."""
+    carried in; a tensor (a traced threshold such as `min_length`) as
+    float32 on its device, never read on the host."""
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32)
     return float(np.float32(v))
 
 
@@ -503,7 +507,7 @@ def segments_from_runs(ang: torch.Tensor, mag: torch.Tensor,
                         length=len_o, resp=top, valid=top > 0)
 
 
-def detect_line_segments(img: torch.Tensor, min_length: float,
+def detect_line_segments(img: torch.Tensor, min_length,
                          capacity: int = 300, n_dirs: int = 16,
                          ang_th_deg: float = 22.5, quant: float = 2.0,
                          density_th: float = 0.6, sigma: float = 0.8,
@@ -516,7 +520,8 @@ def detect_line_segments(img: torch.Tensor, min_length: float,
     """Full dense line-segment detection on grayscale images [N, H, W].
 
     min_length: threshold in pixels (reference: min_line_length *
-    min(W, H)).  log_eps >= 0 adds the a-contrario NFA validation (keep a
+    min(W, H)), a number or a 0-d tensor (as the compiled program takes
+    it).  log_eps >= 0 adds the a-contrario NFA validation (keep a
     segment iff -log10(NFA) >= log_eps); -1 disables it.  valid_mask
     ([H, W] bool) restricts detection to True pixels.  refine=False is the
     FLD-like mode: raw run endpoints.  with_field=True also returns the
@@ -537,3 +542,15 @@ def detect_line_segments(img: torch.Tensor, min_length: float,
     if with_field:
         return segs, ang, mag
     return segs
+
+
+def compile_detect_line_segments(device=None, **static) -> Compiled:
+    """`detect_line_segments` as a captured program on `device` ("cuda"
+    unless the caller asks for the CPU): `prog(img, min_length[,
+    valid_mask])`, `min_length` a 0-d float32 tensor (traced in the JAX
+    package: each call may bring another), equal to the eager call bit for
+    bit; `static`: its other keyword arguments (`capacity`, `n_dirs`, ...,
+    `with_field`, `k_total`, `per_direction`), fixed for the program's
+    life.  One graph per image shape and per `valid_mask` given or not."""
+    return compile_fn(detect_line_segments,
+                      ("img", "min_length", "valid_mask"), device, **static)

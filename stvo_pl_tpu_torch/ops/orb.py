@@ -24,6 +24,7 @@ import torch
 
 from stvo_pl_tpu_torch.device import device_cache
 from stvo_pl_tpu_torch.ops.patches import extract_patches
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 
 PATCH_R = 16          # gathered patch radius -> 33x33 patches
 PATCH = 2 * PATCH_R + 1
@@ -223,6 +224,16 @@ def orient_and_describe(img: torch.Tensor, img_blur: torch.Tensor,
     out = orient_describe(gather_patches(img_blur, uv),
                           patch_size=patch_size)
     return tuple(x[0] for x in out) if single else out
+
+
+def compile_orient_and_describe(patch_size: int = 31,
+                                device=None) -> Compiled:
+    """`orient_and_describe` as a captured program on `device` ("cuda"
+    unless the caller asks for the CPU): `prog(img, img_blur, uv) ->
+    (desc, cos, sin)`, equal to the eager call bit for bit; on the card
+    its graph holds the patch gather kernel."""
+    return compile_fn(orient_and_describe, ("img", "img_blur", "uv"),
+                      device, patch_size=patch_size)
 
 
 def describe_wta(patches: torch.Tensor, cos_t: torch.Tensor,

@@ -36,7 +36,7 @@ import torch.distributed as dist
 from stvo_pl_tpu_torch.models.optimizer import segment_overlap
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import robust, se3
-from stvo_pl_tpu_torch.parallel.compiled import Compiled
+from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
 from stvo_pl_tpu_torch.parallel.mesh import DATA_AXIS, axis, mesh_device
 
 
@@ -334,6 +334,19 @@ def ba_solve(poses_cw, prob: BAProblem, cam, n_iters: int = 8,
             update_landmarks)
         costs.append(cost)
     return poses, X, Xl, torch.stack(costs)
+
+
+def compile_ba_solve(cam, n_iters: int = 8, damping: float = 1e-4,
+                     kernel: str = "cauchy", update_landmarks: bool = True,
+                     device=None) -> Compiled:
+    """`ba_solve` as a captured program on `device` ("cuda" unless the
+    caller asks for the CPU), one graph per problem structure and shape:
+    `solve(poses_cw, prob) -> (poses, X, Xl_or_None, costs)`, equal to
+    `ba_solve` bit for bit.  `damping`, a traced scalar of the JAX
+    package's `ba_solve`, is fixed for the program's life here."""
+    return compile_fn(ba_solve, ("poses_cw", "prob"), device, cam=cam,
+                      n_iters=n_iters, damping=damping, kernel=kernel,
+                      update_landmarks=update_landmarks)
 
 
 def make_sharded_ba(mesh, cam, n_iters: int = 8, damping: float = 1e-4,

@@ -17,7 +17,10 @@ the outputs, so what a call returns belongs to the caller and no later
 call changes it; the arguments themselves are never written (the input
 state is free to reuse, which is all that jit's donation promises).  A
 capture or replay that fails raises: there is no eager fallback on the
-card.
+card.  A program holds no reference back to its `Compiled`, so one that
+is dropped is freed at once by reference counting, never by the garbage
+collector inside another program's capture, which freeing its graph and
+pool would invalidate.
 
 On the CPU, where there is no graph and only because the caller asked
 for the CPU, the same object runs `fn` eagerly on the same static
@@ -49,6 +52,8 @@ collectives failed in it, in an NCCL world of one H100 or of four
 """
 
 from __future__ import annotations
+
+import inspect
 
 import torch
 import torch.distributed as dist
@@ -84,9 +89,9 @@ class _Program:
     """One program: static buffers, on CUDA the graph, and the device
     constants its first run read (`owned`)."""
 
-    def __init__(self, owner: "Compiled", spec, leaves):
-        self.owner = owner
-        self.static_in = [torch.empty_like(x, device=owner.device)
+    def __init__(self, fn, device, spec, leaves):
+        self.fn, self.device = fn, device
+        self.static_in = [torch.empty_like(x, device=device)
                           for x in leaves]
         self.static_args = _unflatten(spec, iter(self.static_in))
         self.graph = None
@@ -100,8 +105,8 @@ class _Program:
 
     def capture(self):
         """Warm up on a side stream, then capture one run of fn."""
-        fn, args = self.owner.fn, self.static_args
-        with torch.cuda.device(self.owner.device), owning(self.owned):
+        fn, args = self.fn, self.static_args
+        with torch.cuda.device(self.device), owning(self.owned):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -122,7 +127,7 @@ class _Program:
             self.replays += 1
         else:
             with owning(self.owned):
-                self._keep(self.owner.fn(*self.static_args))
+                self._keep(self.fn(*self.static_args))
         return _unflatten(self.out_spec,
                           iter([t.clone() for t in self.out_leaves]))
 
@@ -151,10 +156,41 @@ class Compiled:
         key = spec, tuple((tuple(x.shape), x.dtype) for x in leaves)
         prog = self.programs.get(key)
         if prog is None:
-            prog = _Program(self, spec, leaves)
+            prog = _Program(self.fn, self.device, spec, leaves)
             if self.device.type == "cuda":
                 for s, x in zip(prog.static_in, leaves):
                     s.copy_(x)
                 prog.capture()
             self.programs[key] = prog
         return prog.run(leaves)
+
+
+def compile_fn(fn, argnames: tuple, device=None, **static) -> Compiled:
+    """`fn` as a captured program on `device` ("cuda" unless the caller
+    asks for the CPU), the counterpart of `jax.jit(fn, static_argnames=...)`
+    for one tuple of static values: `static` (JAX's static arguments) are
+    passed to every call by keyword and fixed for the program's life,
+    `argnames` (JAX's traced arguments) are the program's own arguments,
+    given by position (tensors, NamedTuples of them or None; trailing ones
+    may be left out and take `fn`'s defaults):
+
+        prog = compile_fn(knn_match, ("query", "index", "q_valid"), k=2)
+        prog(query, index)      # == knn_match(query, index, k=2)
+
+    A number that may change from call to call (a threshold that JAX
+    traces, as `detect_line_segments`' `min_length`) belongs in `argnames`
+    as a 0-d tensor: a Python number closed over is frozen into the
+    graph."""
+    clash = set(argnames) & set(static)
+    if clash:
+        raise TypeError(f"{fn.__name__}: {sorted(clash)} are the program's "
+                        f"arguments, not static ones")
+    inspect.signature(fn).bind_partial(**static)    # unknown names raise
+
+    def body(*args):
+        if len(args) > len(argnames):
+            raise TypeError(f"{fn.__name__}: at most {len(argnames)} "
+                            f"arguments {argnames}, got {len(args)}")
+        return fn(**dict(zip(argnames, args)), **static)
+    body.__name__ = body.__qualname__ = fn.__name__
+    return Compiled(body, device)

@@ -35,12 +35,9 @@ machine with a card they run as
 `pytest --noconftest -m gpu tests/test_torch_compiled.py`.
 """
 
-import traceback
-
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from stvo_pl_tpu_torch import convert
 from stvo_pl_tpu_torch.config import VOConfig as TCfg
@@ -272,38 +269,6 @@ def test_compiled_refiner_against_jax():
 # what a capture needs, on the CPU: no host data, no host sync
 # ---------------------------------------------------------------------------
 
-_A = torch.ops.aten
-_HOST_OPS = {_A._local_scalar_dense.default, _A.is_nonzero.default,
-             _A.equal.default, _A.nonzero.default, _A.masked_select.default,
-             _A.bincount.default, _A._unique2.default, _A.unique_dim.default,
-             _A.unique_consecutive.default, _A.repeat_interleave.Tensor,
-             _A.lift_fresh.default}
-_INDEX_OPS = {_A.index.Tensor, _A.index_put.default, _A.index_put_.default,
-              _A._index_put_impl_.default}
-
-
-class _HostAudit(TorchDispatchMode):
-    """Records each operation that a CUDA graph capture would refuse or
-    that would wait for the device: a tensor made from host data
-    (`lift_fresh`), a tensor read on the host, output shapes that depend
-    on the data; with where the port called it."""
-
-    def __init__(self):
-        super().__init__()
-        self.found = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        bad = func in _HOST_OPS or (func in _INDEX_OPS and any(
-            i is not None and i.dtype == torch.bool for i in args[1]))
-        if bad:
-            frames = [f for f in traceback.extract_stack()
-                      if "stvo_pl_tpu_torch" in f.filename]
-            at = f"{frames[-1].filename}:{frames[-1].lineno}" if frames \
-                else "?"
-            self.found.append(f"{func} at {at}")
-        return func(*args, **(kwargs or {}))
-
-
 AUDIT_MODES = ["default", "points_only", "dense_all_direction",
                "dense_per_direction", "popcount", "rgbd", "edlines",
                "window_refiner", "sharded_tp_step", "sharded_ba",
@@ -347,6 +312,7 @@ def test_step_never_touches_the_host(frames, mode, request):
     from stvo_pl_tpu_torch.models import frontend
     from stvo_pl_tpu_torch.ops import se3
     from stvo_pl_tpu_torch.parallel import ba
+    from test_torch_helpers import HostAudit
     L, R, _ = frames
     L, R = torch.from_numpy(L[:1]), torch.from_numpy(R[:1])
     kw, per_direction = GPU_MODES.get(mode, (dict(), False))
@@ -390,7 +356,7 @@ def test_step_never_touches_the_host(frames, mode, request):
     else:
         go = lambda: run(state, n)
     go()
-    audit = _HostAudit()
+    audit = HostAudit()
     uploads, calls = [], []
     real = torch.from_numpy
     with pytest.MonkeyPatch.context() as mp:

@@ -1,13 +1,17 @@
-"""Shared pieces of the port's line tests (no tests of its own): the JAX
+"""Shared pieces of the port's tests (no tests of its own): the JAX
 package forced onto its kernel branch on the CPU, the small rendered
-stereo sequence, and a matcher of segment sets."""
+stereo sequence, a matcher of segment sets, and the audit of host
+traffic that a CUDA graph capture would refuse."""
 
 import contextlib
 import functools
+import traceback
 
 import numpy as np
 import jax
 import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from stvo_pl_tpu.ops import camera as jcam
 from stvo_pl_tpu.ops import fast as jfast
@@ -38,13 +42,14 @@ class GateOnTpu:
 
 
 @contextlib.contextmanager
-def jax_kernel_branch(lsd: bool = True):
+def jax_kernel_branch(lsd: bool = True, orb: bool = False):
     """The JAX package on its kernel branches (FAST and LSD) with
     `pallas_call` in interpret mode.  `detect_line_segments` and `vo_step`
     are jitted and read the backend while tracing, so the traces made
     before and under the patches are dropped on both sides.  With
     `lsd=False` only FAST takes its kernel branch and the line detector
-    stays on the per-direction generator it runs off the TPU."""
+    stays on the per-direction generator it runs off the TPU; `orb=True`
+    also puts ORB's patch gather on its Pallas kernel."""
     from jax.experimental import pallas as pl
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(pl, "pallas_call",
@@ -52,6 +57,9 @@ def jax_kernel_branch(lsd: bool = True):
         mp.setattr(jfast, "jax", GateOnTpu())
         if lsd:
             mp.setattr(jlsd, "jax", GateOnTpu())
+        if orb:
+            from stvo_pl_tpu.ops import orb as jorb
+            mp.setattr(jorb, "jax", GateOnTpu())
         jax.clear_caches()
         try:
             yield
@@ -87,8 +95,6 @@ def port_vo_frames(n_frames: int, cfg_kwargs: dict, seed: int = 0,
     """The port's VO on the CPU over the rendered sequence: per frame
     (Tfw [4,4] float32, is_kf, PointSet, LineSet) with numpy leaves
     (descriptors as uint32), and the true poses."""
-    import torch
-
     from stvo_pl_tpu_torch import convert
     from stvo_pl_tpu_torch.config import VOConfig
     from stvo_pl_tpu_torch.models import frontend
@@ -121,3 +127,35 @@ def jax_tree(tree):
     if isinstance(tree, tuple):
         return type(tree)(*[jax_tree(x) for x in tree])
     return jnp.asarray(tree)
+
+
+_A = torch.ops.aten
+_HOST_OPS = {_A._local_scalar_dense.default, _A.is_nonzero.default,
+             _A.equal.default, _A.nonzero.default, _A.masked_select.default,
+             _A.bincount.default, _A._unique2.default, _A.unique_dim.default,
+             _A.unique_consecutive.default, _A.repeat_interleave.Tensor,
+             _A.lift_fresh.default}
+_INDEX_OPS = {_A.index.Tensor, _A.index_put.default, _A.index_put_.default,
+              _A._index_put_impl_.default}
+
+
+class HostAudit(TorchDispatchMode):
+    """Records each operation that a CUDA graph capture would refuse or
+    that would wait for the device: a tensor made from host data
+    (`lift_fresh`), a tensor read on the host, output shapes that depend
+    on the data; with where the port called it."""
+
+    def __init__(self):
+        super().__init__()
+        self.found = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        bad = func in _HOST_OPS or (func in _INDEX_OPS and any(
+            i is not None and i.dtype == torch.bool for i in args[1]))
+        if bad:
+            frames = [f for f in traceback.extract_stack()
+                      if "stvo_pl_tpu_torch" in f.filename]
+            at = f"{frames[-1].filename}:{frames[-1].lineno}" if frames \
+                else "?"
+            self.found.append(f"{func} at {at}")
+        return func(*args, **(kwargs or {}))
