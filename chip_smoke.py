@@ -356,9 +356,12 @@ def eager_cli(argv: list):
     from stvo_pl_tpu_torch.parallel import window
 
     def step(cam, cfg, per_direction=False, device=None):
-        return lambda s, a, b: frontend.vo_step(
-            s, a.to(device, non_blocking=True),
-            b.to(device, non_blocking=True), cam, cfg)
+        def run(s, a, b):
+            return frontend.vo_step(s, a.to(device, non_blocking=True),
+                                    b.to(device, non_blocking=True), cam, cfg)
+        # no program, so no stage ring: the CLI prints no stage line
+        run.stages = lambda: ([], torch.zeros((0, 0), dtype=torch.int64))
+        return run
 
     def refiner(cam, cfg, auto=True, device=None, **kw):
         if auto:

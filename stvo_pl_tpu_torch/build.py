@@ -21,13 +21,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming")
+SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming", "stage_stamp")
 LIB = "libstvo_kernels.so"
 
 # -fmad=false: fast_pack needs IEEE float arithmetic in the reference
 # kernel's order, with no FMA contraction (its source also spells the
 # sensitive lines with __f*_rn intrinsics); patches, lsd_run_pack and
-# hamming do no float math.
+# hamming and stage_stamp do no float math.
 # -Xptxas=-v reports each kernel's registers and spills (`ptxas_report`).
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
@@ -42,6 +42,7 @@ SIGNATURES = {
                                 _P],
     "stvo_lsd_run_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "stvo_hamming_popc": [_P, _P, _P, _I, _I, _I, _P],
+    "stvo_stage_stamp": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -288,6 +288,15 @@ def run(argv=None) -> CliRun:
               + (f", {backend.n_skipped} skipped by trust gate"
                  if backend.n_skipped else "")
               + timing)
+    names, ns = step.stages()
+    if len(ns):
+        # each stage's median over the run's steps, from the step's stage
+        # stamps (utils/profiling.py): the device's clock on the card, the
+        # host's on the CPU, where the step runs synchronously
+        med = np.median(np.diff(ns.numpy(), axis=1), axis=0) * 1e-6
+        print(f"[stvo] stages: median {'device' if cuda else 'host'} ms "
+              f"per step over {len(ns)} step(s): "
+              + "  ".join(f"{n} {v:.2f}" for n, v in zip(names[1:], med)))
     from stvo_pl_tpu_torch.utils import metrics
     if args.traj_out:
         metrics.write_tum(args.traj_out, poses)

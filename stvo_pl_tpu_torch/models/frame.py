@@ -19,6 +19,8 @@ from either generator of ops/lsd.py (`per_direction`), or from the
 EDLine detector (`use_edlines`, ops/edline.py, both eyes in one pass,
 optionally at 1/edline_scale resolution).  `extract_rgbd_features` is the
 RGB-D front end: one intensity image and a registered depth map per lane.
+Both front ends stamp `points` and `lines` where each half ends
+(utils/profiling.stamp).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from stvo_pl_tpu_torch.ops import fast as fast_ops
 from stvo_pl_tpu_torch.ops import edline, lbd, lsd, matching, orb, subpix
 from stvo_pl_tpu_torch.ops.image import (gaussian_blur, pyramid_levels,
                                          resize_bilinear, sobel)
+from stvo_pl_tpu_torch.utils.profiling import stamp
 
 
 class FrameFeatures(NamedTuple):
@@ -676,6 +679,7 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
         points = match_stereo_points(det_l, det_r, cam, cfg, tp=tp)
     else:
         points = empty_points(cfg.point_capacity, dtype, dev, (B,))
+    stamp("points")
 
     if cfg.has_lines and cfg.use_edlines:
         segs = detect_edlines_stereo(both, min_line_length, cfg)
@@ -708,6 +712,7 @@ def extract_stereo_features(img_l: torch.Tensor, img_r: torch.Tensor,
                                    cfg, level_l=octv_l, tp=tp)
     else:
         lines = empty_lines(cfg.line_capacity, dtype, dev, (B,))
+    stamp("lines")
     return FrameFeatures(points=points, lines=lines)
 
 
@@ -755,6 +760,7 @@ def extract_rgbd_features(img: torch.Tensor, depth: torch.Tensor,
                           valid=ok)
     else:
         points = empty_points(cfg.point_capacity, dtype, dev, (B,))
+    stamp("points")
 
     if cfg.has_lines:
         if cfg.use_edlines:
@@ -797,4 +803,5 @@ def extract_rgbd_features(img: torch.Tensor, depth: torch.Tensor,
             valid=ok)
     else:
         lines = empty_lines(cfg.line_capacity, dtype, dev, (B,))
+    stamp("lines")
     return FrameFeatures(points=points, lines=lines)

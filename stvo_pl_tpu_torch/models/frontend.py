@@ -33,6 +33,7 @@ from stvo_pl_tpu_torch.models.features import (LineMatches, LineSet,
 from stvo_pl_tpu_torch.ops import camera as cam_ops
 from stvo_pl_tpu_torch.ops import linalg, matching, se3
 from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
+from stvo_pl_tpu_torch.utils.profiling import stamp
 
 _sel = optimizer._sel
 
@@ -231,8 +232,12 @@ def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                tp=None) -> tuple[VOState, StepTelemetry]:
     """Process B rectified stereo pairs [B, H, W] for B lanes of state.
     tp = (model-axis process group, n_shards) column-shards every matcher
-    whose query set reaches cfg.tp_min_features (ops/matching.match_auto)."""
+    whose query set reaches cfg.tp_min_features (ops/matching.match_auto).
+    Inside a captured program the step's stages are stamped (`begin`,
+    then `points`, `lines`, `f2f`, `optimizer`, `keyframe` where each
+    ends; utils/profiling.stamp)."""
     _check_images(state, cam, imgs_l=imgs_l, imgs_r=imgs_r)
+    stamp("begin")
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_stereo_features(
         imgs_l.to(torch.float32), imgs_r.to(torch.float32), state.fast_th,
@@ -246,8 +251,9 @@ def step_lanes_rgbd(state: VOState, imgs: torch.Tensor, depths: torch.Tensor,
                     ) -> tuple[VOState, StepTelemetry]:
     """RGB-D variant of `step_lanes`: B intensity images and registered
     metric depth maps [B, H, W] (reference extractRGBDFeatures path,
-    src/stereoFrame.cpp:667-818)."""
+    src/stereoFrame.cpp:667-818), with the same stage stamps."""
     _check_images(state, cam, imgs=imgs, depths=depths)
+    stamp("begin")
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_rgbd_features(
         imgs.to(torch.float32), depths.to(torch.float32), state.fast_th,
@@ -259,8 +265,10 @@ def _track_and_update(state: VOState, feats, cam, cfg: VOConfig, tp=None):
     dtype = state.Tfw.dtype
     pm = match_f2f_points(state.prev_points, feats.points, cfg, cam, tp=tp)
     lm = match_f2f_lines(state.prev_lines, feats.lines, cfg, cam, tp=tp)
+    stamp("f2f")
     est, pm, lm = optimizer.optimize_pose(
         pm, lm, cam, cfg, state.DT, state.DT_cov, state.err_norm)
+    stamp("optimizer")
 
     first = ~state.initialized
     I4 = torch.eye(4, dtype=dtype, device=state.Tfw.device).expand_as(est.DT)
@@ -303,6 +311,7 @@ def _track_and_update(state: VOState, feats, cam, cfg: VOConfig, tp=None):
         n_lines=torch.sum(lm.valid, dim=-1), n_inliers_ls=est.n_inliers_ls,
         fast_th=fast_th_new, is_kf=is_kf & ~first,
         entropy_ratio=entropy_ratio, opt_iters=est.iters)
+    stamp("keyframe")
     return new_state, telem
 
 

@@ -29,8 +29,24 @@ buffers and returns clones in the same way.
 Kernel launches.  The kernel wrappers count their launches in Python
 (`fast_pack.launches`, ...), where they launch: the warm-up's and the
 capture's calls count, and a replay, which runs no Python, adds nothing.
-`_Program.replays` counts the replays; the captured graph's kernel nodes
-say what each one launches.
+`_Program.replays` counts the replays on the host, and the device counter
+of the program's stage ring (below) counts them on the device; the
+captured graph's kernel nodes say what each one launches, the six stamp
+kernels of a stamped step included.
+
+Stages.  A program owns a `utils/profiling.StageRing`: its warm-up and
+its capture (on the CPU every run) are `stamping` blocks, so the
+`profiling.stamp` calls of the body are captured as stamp kernels, and
+each replay writes the device clock at every stage boundary into its own
+row of the ring (4096 rows), with no host sync, copy or argument.
+`stages()` reads the rows back with one copy, only when called; a body
+that stamps nothing (the `compile_fn` programs) reports no names.
+
+Host spans.  A call is the `torch.profiler.record_function` span
+`stvo.call`, with `stvo.copy_in`, `stvo.replay` (on the CPU the eager
+run) and `stvo.clone_out` inside it: under a profiler they lie on the
+clock of the device's events; without one each costs a few microseconds
+of host time and launches nothing.
 
 Constants.  A graph reads the device constants of its capture by address
 and holds no reference to them, so the program holds every value of the
@@ -57,8 +73,10 @@ import inspect
 
 import torch
 import torch.distributed as dist
+from torch.profiler import record_function
 
 from stvo_pl_tpu_torch.device import owning, resolve_device
+from stvo_pl_tpu_torch.utils.profiling import StageRing, stamping
 
 
 def _flatten(tree, leaves: list):
@@ -86,8 +104,9 @@ def _unflatten(spec, leaves):
 
 
 class _Program:
-    """One program: static buffers, on CUDA the graph, and the device
-    constants its first run read (`owned`)."""
+    """One program: static buffers, on CUDA the graph, the device
+    constants its first run read (`owned`) and the ring of its stage
+    stamps (`ring`)."""
 
     def __init__(self, fn, device, spec, leaves):
         self.fn, self.device = fn, device
@@ -97,6 +116,7 @@ class _Program:
         self.graph = None
         self.replays = 0
         self.owned: dict = {}
+        self.ring = StageRing(device)
         self.out_spec = self.out_leaves = None
 
     def _keep(self, out):
@@ -104,32 +124,43 @@ class _Program:
         self.out_spec = _flatten(out, self.out_leaves)
 
     def capture(self):
-        """Warm up on a side stream, then capture one run of fn."""
+        """Warm up on a side stream, then capture one run of fn.  The
+        warm-up's stamps fix the ring's names; the ring is allocated on
+        the caller's stream once the warm-up has left the side stream."""
         fn, args = self.fn, self.static_args
         with torch.cuda.device(self.device), owning(self.owned):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
+            with stamping(self.ring), torch.cuda.stream(side):
                 fn(*args)                               # the warm-up
             torch.cuda.current_stream().wait_stream(side)
             torch.cuda.synchronize()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph), stamping(self.ring):
                 out = fn(*args)
         self._keep(out)
         self.graph = graph
 
     def run(self, leaves):
-        for s, x in zip(self.static_in, leaves):
-            s.copy_(x, non_blocking=True)
-        if self.graph is not None:
-            self.graph.replay()
-            self.replays += 1
-        else:
-            with owning(self.owned):
-                self._keep(self.fn(*self.static_args))
-        return _unflatten(self.out_spec,
-                          iter([t.clone() for t in self.out_leaves]))
+        with record_function("stvo.copy_in"):
+            for s, x in zip(self.static_in, leaves):
+                s.copy_(x, non_blocking=True)
+        with record_function("stvo.replay"):
+            if self.graph is not None:
+                self.graph.replay()
+                self.replays += 1
+            else:
+                with owning(self.owned), stamping(self.ring):
+                    self._keep(self.fn(*self.static_args))
+        with record_function("stvo.clone_out"):
+            return _unflatten(self.out_spec,
+                              iter([t.clone() for t in self.out_leaves]))
+
+    def stages(self) -> tuple[list, torch.Tensor]:
+        """(names, ns): the stamps of the most recent runs (on CUDA the
+        replays), ns int64 [min(runs, 4096), len(names)] in nanoseconds,
+        oldest first (utils/profiling.StageRing.stages)."""
+        return self.ring.stages()
 
 
 class Compiled:
@@ -144,6 +175,10 @@ class Compiled:
         self.programs: dict = {}    # static key -> _Program
 
     def __call__(self, *args):
+        with record_function("stvo.call"):
+            return self._call(args)
+
+    def _call(self, args):
         for group in self.groups:
             try:
                 dist.get_rank(group)
@@ -163,6 +198,14 @@ class Compiled:
                 prog.capture()
             self.programs[key] = prog
         return prog.run(leaves)
+
+    def stages(self) -> tuple[list, torch.Tensor]:
+        """`_Program.stages()` of the one program this object holds."""
+        if len(self.programs) != 1:
+            raise ValueError(f"stages() reads a Compiled of one program; "
+                             f"this one has {len(self.programs)}")
+        (prog,) = self.programs.values()
+        return prog.stages()
 
 
 def compile_fn(fn, argnames: tuple, device=None, **static) -> Compiled:

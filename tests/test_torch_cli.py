@@ -161,6 +161,25 @@ def test_cli_decimation_and_gpu_default(dataset_dir):
             tcli.main([str(dataset_dir), "--quiet"])
 
 
+def test_cli_prints_the_stage_line(dataset_dir, capsys):
+    """At the end of a run the CLI prints each stage's median time per
+    step from the compiled step's stage stamps, in one line: on the CPU
+    the host's clock, over every step of the run (frames 0, 2, 4, 6)."""
+    import re
+    capsys.readouterr()
+    tcli.run([str(dataset_dir), "-c", str(dataset_dir / "cfg.yaml"),
+              "-s", "2", "--quiet", "--device", "cpu"])
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("[stvo] stages:")]
+    assert len(lines) == 1, lines
+    m = re.fullmatch(r"\[stvo\] stages: median host ms per step over 4 "
+                     r"step\(s\): points (\S+)  lines (\S+)  f2f (\S+)  "
+                     r"optimizer (\S+)  keyframe (\S+)", lines[0])
+    assert m, lines[0]
+    ms = [float(v) for v in m.groups()]
+    assert all(v >= 0 for v in ms) and ms[0] > 0 and ms[3] > 0
+
+
 def test_image_sequence_against_jax(dataset_dir):
     t = tdata.ImageSequence(str(dataset_dir), offset=1, step=2, nmax=2,
                             device="cpu")
