@@ -203,6 +203,32 @@ def failed_frames(frames: Frames) -> int:
     return int((~a["good"].astype(bool) & tracked).sum())
 
 
+def pass_disagreement(frames: Frames) -> dict:
+    """How far the program's answers repeat: of the (lane, frame) cells
+    met in two passes or more that started at the same frame (each from
+    the initial state), `cells_differ` is the number whose `good` flag
+    differs between those passes, and `pose_gap_m` the largest distance
+    between the positions those passes answered."""
+    a = frames.arrays()
+    key = np.stack([a["lane"], a["pass_start"], a["frame"]],
+                   1).astype(np.int64)
+    _, first, inv, n = np.unique(key, axis=0, return_index=True,
+                                 return_inverse=True, return_counts=True)
+    inv = inv.reshape(-1)
+    n_good = np.bincount(inv, weights=a["good"].astype(bool),
+                         minlength=len(n))
+    seen = n >= 2
+    differ = seen & (n_good > 0) & (n_good < n)
+
+    def cells(groups):
+        return len(np.unique(key[first[groups]][:, [0, 2]], axis=0))
+
+    t = a["Tfw"][:, :3, 3]
+    gap = np.linalg.norm(t - t[first[inv]], axis=-1)
+    return dict(cells_differ=cells(differ), cells_seen=cells(seen),
+                pose_gap_m=float(gap.max()))
+
+
 def verdict(numbers: dict, limits: dict) -> tuple[bool, dict]:
     """(correct, {name: {"value", "limit"}}) over the numbers that have a
     limit; a number that is missing or not finite fails."""

@@ -14,9 +14,11 @@ JSON line as the last line of its standard output.  With `--trace 0` the
 line carries the cell's end-to-end metrics; with `--trace 1` a traced
 slice follows the window, and the line carries the per-layer metrics that
 their readers (vobench/metrics/) take from it, with the device's busy
-time and a breakdown.  The numbers compared, each with its limit
-(vobench/limits/<cell>.json), are the last lines of standard error and
-the last key of the JSON line.
+time and a breakdown.  `attempted` and `failed` count the lane-frames that
+the traffic driver counts (the fleet's: those of the window's first
+2 x `seq_frames` steps, the same at any speed).  The numbers compared, each
+with its limit (vobench/limits/<cell>.json), are the last lines of
+standard error and the last key of the JSON line.
 
 A run exits with a code other than 0, and prints no result, when it finds
 no CUDA device or fewer than the cell asks for, and when a module of JAX or
@@ -164,17 +166,26 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     correct, checks = compare.verdict(numbers, limits)
     if sink is not None:
         sink.update(numbers, detail=compare.detail(res.frames, truth))
-    failed = compare.failed_frames(res.frames)
+    attempted = len(res.counted)
+    failed = compare.failed_frames(res.counted)
     for k, v in sorted(numbers.items()):
         if k not in checks:
             log(f"[vobench] {k} {v!r} (not compared)")
     for k, v in sorted(res.e2e.items()):
         log(f"[vobench] {k} {v!r}")
-    log(f"[vobench] setup_s {setup['s']!r}  lane-frames {res.attempted}  "
+    if res.counted is not res.frames:
+        log(f"[vobench] every lane-frame of the run: {len(res.frames)} "
+            f"failed {compare.failed_frames(res.frames)} (not compared)")
+        rep = compare.pass_disagreement(res.frames)
+        log(f"[vobench] good differs between passes from the same start "
+            f"at {rep['cells_differ']} of {rep['cells_seen']} (lane, frame) "
+            f"cells met twice or more; largest pose gap between them "
+            f"{rep['pose_gap_m']!r} m (not compared)")
+    log(f"[vobench] setup_s {setup['s']!r}  lane-frames {attempted}  "
         f"failed {failed}  peak {peak}")
 
-    out = dict(correct=bool(correct and res.attempted > 0),
-               attempted=int(res.attempted), failed=int(failed))
+    out = dict(correct=bool(correct and attempted > 0),
+               attempted=attempted, failed=int(failed))
     dev_info = dict(platform="gpu" if cuda else "cpu",
                     kind=torch.cuda.get_device_name(device) if cuda
                     else "cpu", count=int(w["chips"]),

@@ -12,6 +12,15 @@ in flight beyond the one whose telemetry the host waits for.
 - `frame_ms_p95`: the 95th percentile over every step of the window (each
   carries B lane-frames) of the time from the step's dispatch to its
   telemetry on the host.
+
+`attempted` and `failed` count the lane-frames of the window's first
+2 x `seq_frames` steps only, in which every lane meets every frame of its
+sequence twice (its first pass, one full pass after a reset, the start of
+the next), so that a faster program is counted on the same lanes, frames
+and passes, from the same states, as a slower one; the steps after them
+repeat those passes from the same reset state.  A window that holds fewer
+steps is followed by the rest of them, untimed.  `correct` judges every
+lane-frame of the run.
 """
 
 from __future__ import annotations
@@ -61,8 +70,8 @@ class Schedule(NamedTuple):
 
 class Result(NamedTuple):
     e2e: dict
-    frames: Frames
-    attempted: int
+    frames: Frames      # every answer of the run: `correct` judges them
+    counted: Frames     # the answers that `attempted` and `failed` count
     steps_traced: int
     trace: object
     step_host_ms: list
@@ -87,7 +96,8 @@ def run(system, pool, mix: dict, seconds: float, tracer,
                    for p in range(T)]
     host = [torch.empty((B, system.pack_width), dtype=torch.float32,
                         pin_memory=dev.type == "cuda") for _ in range(2)]
-    frames = Frames()
+    frames, counted = Frames(), Frames()
+    count_until = mix["warmup_steps"] + 2 * T   # steps before it count
     lat: list = []
     state = system.fresh()
 
@@ -121,9 +131,12 @@ def run(system, pool, mix: dict, seconds: float, tracer,
         v = buf.numpy().copy()
         if record:
             lat.append(t1 - t0)
-            frames.add(np.arange(B), sched.pass_start(s), sched.pass_no(s),
-                       sched.frames(s), v[:, :16].reshape(B, 4, 4),
-                       v[:, _KF] > 0.5, v[:, _GOOD] > 0.5, v[:, _INL_LS])
+            rows = (np.arange(B), sched.pass_start(s), sched.pass_no(s),
+                    sched.frames(s), v[:, :16].reshape(B, 4, 4),
+                    v[:, _KF] > 0.5, v[:, _GOOD] > 0.5, v[:, _INL_LS])
+            frames.add(*rows)
+            if s < count_until:
+                counted.add(*rows)
         return t1
 
     def drive(s, until=None, n=None, record=True):
@@ -150,6 +163,8 @@ def run(system, pool, mix: dict, seconds: float, tracer,
     steps = s - s0
     e2e = dict(frames_per_s=steps * B / (t_last - t_first),
                frame_ms_p95=float(np.percentile(lat, 95)) * 1e3)
+    if s < count_until:                     # the counted steps, untimed
+        s, _, _ = drive(s, n=count_until - s)
     summary, traced = None, 0
     if tracer.enabled:
         tracer.start()
@@ -158,7 +173,7 @@ def run(system, pool, mix: dict, seconds: float, tracer,
             s, _, _ = drive(s, n=mix["traced_steps"])
             traced = s - s1
         summary = tracer.stop()
-    return Result(e2e=e2e, frames=frames, attempted=len(frames),
+    return Result(e2e=e2e, frames=frames, counted=counted,
                   steps_traced=traced, trace=summary, step_host_ms=[],
                   refine_s=[], ba=None)
 

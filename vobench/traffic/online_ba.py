@@ -130,7 +130,7 @@ def run(system, pool, mix: dict, seconds: float, tracer,
         run_state["ba"] = None
     e2e["late_ms_p95"] = float(np.percentile(late, 95)) * 1e3
     e2e["late_ms_max"] = float(max(late)) * 1e3
-    return Result(e2e=e2e, frames=frames, attempted=len(frames),
+    return Result(e2e=e2e, frames=frames, counted=frames,
                   steps_traced=traced, trace=summary, step_host_ms=step_ms,
                   refine_s=refine_s, ba=(events, ba_frames))
 
