@@ -21,7 +21,13 @@ also drives the points-only step, the dense single-octave line detector
 (lsd_octaves=1) with either run candidate generator, the default step with
 popcount Hamming distances (hamming_use_mxu=False), the binary descriptor
 matcher over an index of the lanes' line descriptors, and the RGB-D step
-on one lane.  Then it writes 40 frames of the textured street canyon
+on one lane.  Every step runs the pose optimizer's kernel
+(csrc/pose_optim.cu) once; pose_optim holds it against the plain
+optimizer (optimize_pose_plain) on optimize_pose's arguments of 8 steps
+of the 8 lanes stacked into 64, under VOConfig() (1,200 points, 300
+lines) and the points-only preset (2,000 points): good, the inlier masks
+and counts equal, DT, err and the covariance within the GPU test's
+tolerances, bit for bit from call to call.  Then it writes 40 frames of the textured street canyon
 (utils/world.py) at the KITTI size to disk under build/ and runs the
 dataset CLI over them with windowed bundle adjustment (cli_ba: VOConfig(),
 windows of 4 keyframes, every 3rd frame promoted, frames read through the
@@ -46,7 +52,7 @@ frames and resumes from the file (checkpoint: the resumed poses
 `torch.equal` to the straight run's, or within the difference of two
 straight runs), and, last, traces one default step and 3 replays of
 the compiled step with utils.profiling (profiling: B1-B3's CUDA kernels
-in the eager trace as often as their wrappers counted them and in the
+and the optimizer's in the eager trace as often as their wrappers counted them and in the
 replays' as often as the graph's kernel nodes say, the device busy share
 within each traced window), and one replay each of the compiled dense
 per-direction and popcount steps (B4's and B5's kernels as the graphs
@@ -124,6 +130,14 @@ RUN_PACK_ONE_OPS_PER_PIXEL = RUN_PACK_OPS_PER_PIXEL_DIR - 2
 # kernel does the pair's work on the tensor cores; its bound is the output's
 # bytes either way)
 HAMMING_OPS_PER_PAIR = 24
+# the pose optimizer's kernel against optimize_pose_plain, with the
+# tolerances of tests/test_torch_optimizer_cuda.py: DT, err (relative),
+# covariance and eigenvalues (of the lane's largest entry), iterations
+POSE_DT_TOL, POSE_ERR_TOL, POSE_COV_TOL, POSE_ITERS_TOL = 2e-4, 1e-3, 2e-3, 2
+# its float operations per solver iteration: residual, Jacobian, weight
+# and normal-equation terms of a point and of a line
+POSE_OPS_PER_POINT = 139
+POSE_OPS_PER_LINE = 243
 # B5's edge words, each in rows of its own: 0, 0xFFFFFFFF, 0x80000000 and
 # 0x7FFFFFFF
 HAMMING_EDGE_WORDS = (0, -1, -2 ** 31, 2 ** 31 - 1)
@@ -154,6 +168,8 @@ LONG_RUN_SIZE = 1280        # B3's long-run masks: 300 hops of (1, 4) fit
 CHECKPOINT_FRAMES = 6       # the checkpoint phase: 6 frames, saved after 3
 CHECKPOINT_AT = 3
 PROFILED_AT = 2             # the profiling phase traces the 3rd step
+POSE_STEPS = 8              # the pose_optim phase: 8 steps x 8 lanes = 64
+POSE_PROBES = 4             # and the plain path on 4 reorderings of them
 GRAPH_TRACED_REPLAYS = 3    # replays of the compiled step in one trace
 
 
@@ -730,7 +746,8 @@ def edlines_phase(drive, check, capture, seq_l, depth0, cam,
         _, r = drive(cfg_ed, nf, WARMUP_FRAMES, out=out_e)
         name = f"vo_edlines scale {scale}"
         check(name, r, {"fast_pack": nf * cfg_ed.orb_nlevels,
-                        "extract_patches": nf * cfg_ed.orb_nlevels})
+                        "extract_patches": nf * cfg_ed.orb_nlevels,
+                        "pose_optim": nf})
         g = capture(cfg_ed)
         out_g = {}
         _, r_g = drive(cfg_ed, nf, WARMUP_FRAMES, graph=g, out=out_g)
@@ -784,7 +801,8 @@ def edlines_phase(drive, check, capture, seq_l, depth0, cam,
             and n_lines > 0 and not bool(state.prev_lines.level.any()),
             f"rgbd with EDLines: good {bool(t.good)}, {n_lines} valid lines")
     require(launches["fast_pack"] == 2 * cfg_rgbd.orb_nlevels
-            and launches["run_pack_multi"] == 0,
+            and launches["run_pack_multi"] == 0
+            and launches["pose_optim"] == 2,
             f"rgbd with EDLines: launches {launches}")
     emit("vo_edlines", scales=r_ed,
          ate_m={k: r["ate_m"] for k, r in r_ed.items()},
@@ -990,7 +1008,7 @@ def sharded_programs(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
                 "step")
     expected = {"fast_pack": nf * cfg.orb_nlevels,
                 "extract_patches": nf * cfg.orb_nlevels,
-                "run_pack_multi": nf}
+                "run_pack_multi": nf, "pose_optim": nf}
     for name, n in launches.items():
         for k in wrappers:
             require(n[k] == expected.get(k, 0),
@@ -1171,7 +1189,7 @@ def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
     n_steps = 3 * CHECKPOINT_FRAMES
     expected = {"fast_pack": n_steps * cfg.orb_nlevels,
                 "extract_patches": n_steps * cfg.orb_nlevels,
-                "run_pack_multi": n_steps}
+                "run_pack_multi": n_steps, "pose_optim": n_steps}
     for k in wrappers:
         require(launches[k] == expected.get(k, 0), f"checkpoint: {k} "
                 f"launched {launches[k]} times in {n_steps} steps")
@@ -1201,13 +1219,14 @@ def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
                 seconds=time.perf_counter() - t_phase, card=smi)
 
 
-# B1, B2 and B3's CUDA kernels (csrc/), each launched once per call of its
-# wrapper
+# B1, B2 and B3's CUDA kernels and the pose optimizer's (csrc/), each
+# launched once per call of its wrapper
 TRACED_KERNELS = {"fast_pack_kernel": "fast_pack",
                   "extract_kernel": "extract_patches",
                   "run_planes_kernel": "run_pack_multi",
-                  "chain_pack_kernel": "run_pack_multi"}
-# every CUDA kernel of the five wrappers: each wrapper's launch runs each
+                  "chain_pack_kernel": "run_pack_multi",
+                  "pose_optim_kernel": "pose_optim"}
+# every CUDA kernel of the six wrappers: each wrapper's launch runs each
 # of its kernels once
 CUDA_KERNELS = {**TRACED_KERNELS, "run_plane_kernel": "run_pack",
                 "start_pack_kernel": "run_pack",
@@ -1605,7 +1624,8 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
         return counted
 
     require(all(launches[w] > 0 for w in TRACED_KERNELS.values()),
-            f"profiling: a kernel of B1-B3 did not run: {launches}")
+            f"profiling: a kernel of B1-B3 or the optimizer did not run: "
+            f"{launches}")
     counted = kernels_in(rows, launches, "eager step's")
     trace = profiling.newest_trace(logdir)
 
@@ -1682,6 +1702,150 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
                 seconds=time.perf_counter() - t_phase, card=smi)
 
 
+def pose_optim_phase(cam, seq_l, seq_r, smi: str) -> tuple[dict, dict]:
+    """The pose optimizer's kernel (ops/pose_optim, csrc/pose_optim.cu) on
+    the main path's inputs: optimize_pose's arguments in POSE_STEPS eager
+    steps of the 8 lanes (frames 1-8; frame 0 has no previous frame),
+    taken at the call site and stacked into 64 lanes, for VOConfig()
+    (1,200 points, 300 lines) and configs/config_points_only.yaml (2,000
+    points, no lines).  For each, the kernel against optimize_pose_plain
+    on the same inputs: good, the inlier masks and their counts equal,
+    DT and err within the tolerances of tests/test_torch_optimizer_cuda.py,
+    the iterations within POSE_ITERS_TOL, the covariance and its
+    eigenvalues within theirs plus twice the plain path's own spread
+    there (as that test holds them: the covariance is H's inverse, and on
+    an ill-conditioned lane it moves with the order and the precision of
+    H's sums), the spread over the plain path on POSE_PROBES reorderings
+    of the matches and in float64; a second call bit for bit the first;
+    the launches
+    (one a step, one a call); ms of the kernel and of the plain path, and
+    the bound from the bytes the kernel reads and writes and the float
+    operations of the iterations it ran.  Returns (the phase's numbers,
+    the kernel table's row)."""
+    import os
+    from unittest import mock
+    from stvo_pl_tpu_torch.config import VOConfig, load_config
+    from stvo_pl_tpu_torch.models import optimizer
+    from stvo_pl_tpu_torch.ops import pose_optim
+    from stvo_pl_tpu_torch.parallel import batched
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    configs = {"points_lines": VOConfig(),
+               "points_only": load_config(os.path.join(
+                   here, "configs", "config_points_only.yaml"))}
+    stack = lambda nts: type(nts[0])(*[torch.cat(f) for f in zip(*nts)])
+    real = optimizer.optimize_pose
+    t_phase = time.perf_counter()
+    rows, launches = {}, 0
+    for name, run_cfg in configs.items():
+        calls = []
+
+        def spy(pm, lm, cam_, cfg_, *prev):
+            keep = lambda nt: type(nt)(*[t.clone() for t in nt])
+            calls.append((keep(pm), keep(lm), *[t.clone() for t in prev]))
+            return real(pm, lm, cam_, cfg_, *prev)
+
+        pose_optim.pose_optim.launches = 0
+        state = batched.init_batched_state(run_cfg, BATCH)
+        with mock.patch.object(optimizer, "optimize_pose", spy):
+            for i in range(POSE_STEPS + 1):
+                state, _ = batched.vo_step_batched(
+                    state, seq_l[:, i].contiguous(),
+                    seq_r[:, i].contiguous(), cam, run_cfg)
+        calls = calls[1:]
+        pm, lm = stack([c[0] for c in calls]), stack([c[1] for c in calls])
+        prev = [torch.cat(x) for x in zip(*[c[2:] for c in calls])]
+        run = lambda: pose_optim.pose_optim(pm, lm, cam, run_cfg, *prev)
+        plain = lambda: optimizer.optimize_pose_plain(pm, lm, cam, run_cfg,
+                                                      *prev)
+        k, k2 = run(), run()
+        est, pm_p, lm_p = plain()
+        torch.cuda.synchronize()
+        n = pose_optim.pose_optim.launches
+        require(n == POSE_STEPS + 3, f"pose_optim {name}: {n} launches in "
+                f"{POSE_STEPS + 1} steps and 2 calls")
+        launches += n
+        lanes = len(est.good)
+        require(lanes == BATCH * POSE_STEPS and pm.P.shape[-2]
+                == run_cfg.point_capacity, f"pose_optim {name}: "
+                f"{lanes} lanes of {pm.P.shape[-2]} points")
+        require(all(torch.equal(a, b) for a, b in zip(k, k2)),
+                f"pose_optim {name}: two calls on the same inputs differ")
+        require(bool(est.good.any()), f"pose_optim {name}: no lane good")
+        for what, a, b in (("good", k.good, est.good),
+                           ("point inliers", k.p_inlier, pm_p.inlier),
+                           ("line inliers", k.l_inlier, lm_p.inlier),
+                           ("point inlier counts", k.n_pt, est.n_inliers_pt),
+                           ("line inlier counts", k.n_ls, est.n_inliers_ls)):
+            diff = (a != b).reshape(lanes, -1).any(-1)
+            require(not bool(diff.any()), f"pose_optim {name}: {what} "
+                    f"differ from the plain path's on lanes "
+                    f"{diff.nonzero().flatten().tolist()}")
+        d64 = lambda nt: type(nt)(*[t.double() if t.is_floating_point()
+                                    else t for t in nt])
+        probes = [optimizer.optimize_pose_plain(
+            d64(pm), d64(lm), cam, run_cfg, *[t.double() for t in prev])[0]]
+        gen = torch.Generator().manual_seed(21)
+        for _ in range(POSE_PROBES):
+            pp = torch.randperm(pm.P.shape[-2], generator=gen).to(pm.P.device)
+            lp = torch.randperm(lm.sP.shape[-2], generator=gen).to(pm.P.device)
+            probes.append(optimizer.optimize_pose_plain(
+                type(pm)(*[t[:, pp] for t in pm]),
+                type(lm)(*[t[:, lp] for t in lm]), cam, run_cfg, *prev)[0])
+        per_lane = lambda x: x.double().reshape(lanes, -1)
+        gaps, spread = {}, {}
+        for what, a, b, tol in (
+                ("DT", k.DT, est.DT, POSE_DT_TOL),
+                ("err", k.err, est.err_norm, None),
+                ("cov", k.cov, est.DT_cov, None),
+                ("eig", k.eig, est.DT_cov_eig, None),
+                ("iters", k.iters, est.iters, POSE_ITERS_TOL)):
+            gap = (per_lane(a) - per_lane(b)).abs().amax(-1)
+            if what == "err":
+                tol = POSE_ERR_TOL * per_lane(b)[:, 0].abs() + 1e-7
+            elif tol is None:
+                field = {"cov": "DT_cov", "eig": "DT_cov_eig"}[what]
+                own = torch.stack([(per_lane(getattr(o, field))
+                                    - per_lane(b)).abs().amax(-1)
+                                   for o in probes]).amax(0)
+                tol = POSE_COV_TOL * per_lane(b).abs().amax(-1) + 2 * own
+                spread[what] = float(own.max())
+            bad = ~(gap <= tol)
+            require(not bool(bad.any()), f"pose_optim {name}: {what} "
+                    f"differs from the plain path's by "
+                    f"{gap[bad].tolist()} on lanes "
+                    f"{bad.nonzero().flatten().tolist()}")
+            gaps[what] = float(gap.max())
+        read = [*pm, *prev] + (list(lm) if run_cfg.has_lines else [])
+        n_bytes = sum(t.numel() * t.element_size() for t in read + list(k))
+        n_ops = float(k.iters.sum()) * (
+            POSE_OPS_PER_POINT * pm.P.shape[-2] * run_cfg.has_points
+            + POSE_OPS_PER_LINE * lm.sP.shape[-2] * run_cfg.has_lines)
+        bnd, by = bound_ms(n_bytes, n_ops)
+        rows[name] = dict(
+            lanes=lanes, points=pm.P.shape[-2], lines=lm.sP.shape[-2],
+            has_lines=run_cfg.has_lines, good=int(est.good.sum()),
+            point_inliers=int(est.n_inliers_pt.sum()),
+            line_inliers=int(est.n_inliers_ls.sum()),
+            iters=int(k.iters.sum()), plain_iters=int(est.iters.sum()),
+            max_gap=gaps, plain_spread=spread, equal_discrete=True,
+            bit_repeat=True,
+            ms=time_ms(run, 20), plain_ms=time_ms(plain, 2),
+            bytes=n_bytes, ops=n_ops, bound_ms=bnd, bound_by=by)
+        del calls, pm, lm, prev, k, k2, est, pm_p, lm_p
+    main = rows["points_lines"]
+    row = dict(name="pose_optim", route="cuda",
+               source="stvo_pl_tpu_torch/csrc/pose_optim.cu",
+               replaces="stvo_pl_tpu/models/optimizer.py:369 (XLA, no "
+               "Pallas kernel)",
+               max_abs_err=max(r["max_gap"]["DT"] for r in rows.values()),
+               ms=main["ms"], plain_ms=main["plain_ms"],
+               bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+               library_ms=None)
+    return dict(configs=rows, launches={"pose_optim": launches},
+                seconds=time.perf_counter() - t_phase, card=smi), row
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a "
@@ -1697,6 +1861,7 @@ def main() -> None:
     from stvo_pl_tpu_torch.ops import fast as fast_ops
     from stvo_pl_tpu_torch.ops import binary_matcher, fast_kernel, hamming
     from stvo_pl_tpu_torch.ops import lsd, lsd_kernel, orb, patches
+    from stvo_pl_tpu_torch.ops import pose_optim
     from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
     from stvo_pl_tpu_torch.parallel import batched
     from stvo_pl_tpu_torch.utils import metrics, synthetic
@@ -2160,7 +2325,8 @@ def main() -> None:
                 "extract_patches": patches.extract_patches,
                 "run_pack_multi": lsd_kernel.run_pack_multi,
                 "run_pack": lsd_kernel.run_pack,
-                "hamming_matrix_popc": hamming.hamming_matrix_popc}
+                "hamming_matrix_popc": hamming.hamming_matrix_popc,
+                "pose_optim": pose_optim.pose_optim}
     line_log = []       # (descriptors, validity) of each step's left lines
 
     def drive(run_cfg, frames, warmup, per_direction=False, log=None,
@@ -2272,7 +2438,7 @@ def main() -> None:
     check("vo_points_only", r_pts,
           {"fast_pack": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
            "extract_patches": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
-           "run_pack_multi": 0})
+           "run_pack_multi": 0, "pose_optim": POINTS_ONLY_FRAMES})
 
     # the main path: VOConfig() with every default, points + lines
     out_main = {}
@@ -2281,7 +2447,8 @@ def main() -> None:
     emit("vo", **r_main, points_only_ms_per_step=r_pts["ms_per_step"])
     check("vo", r_main, {"fast_pack": n_frames * cfg.orb_nlevels,
                          "extract_patches": n_frames * cfg.orb_nlevels,
-                         "run_pack_multi": n_frames})
+                         "run_pack_multi": n_frames,
+                         "pose_optim": n_frames})
     require(min(r_main["inliers_ls_lanes"]) > 0,
             f"vo: a lane tracked no line: {r_main['inliers_ls_lanes']}")
 
@@ -2320,7 +2487,8 @@ def main() -> None:
     # the dense single-octave detector with either candidate generator
     nf = POINTS_ONLY_FRAMES
     points_launches = {"fast_pack": nf * cfg.orb_nlevels,
-                       "extract_patches": nf * cfg.orb_nlevels}
+                       "extract_patches": nf * cfg.orb_nlevels,
+                       "pose_optim": nf}
     cfg_dense = VOConfig(lsd_octaves=1)
     r_dense, dense_runs = {}, {}
     for gen_name, per_direction, lsd_launches in (
@@ -2449,8 +2617,10 @@ def main() -> None:
     require(np.isfinite(rgbd_ate) and rgbd_ate < 0.1,
             f"rgbd: ATE {rgbd_ate} m")
     require(fast_kernel.fast_pack.launches == nf * cfg.orb_nlevels
-            and lsd_kernel.run_pack_multi.launches == nf,
-            "rgbd: the step did not go through the FAST and run kernels")
+            and lsd_kernel.run_pack_multi.launches == nf
+            and pose_optim.pose_optim.launches == nf,
+            "rgbd: the step did not go through the FAST, run and optimizer "
+            "kernels")
 
     # ---- 6d. vo_graph's shorter modes, each against its eager run -----
     graph_mode("points_only", cfg_points, tel_pts, out_pts, r_pts)
@@ -2497,6 +2667,10 @@ def main() -> None:
     r_ed, rgbd_ed_launches = edlines_phase(drive, check, capture, seq_l,
                                            depth0, cam, wrappers, smi)
 
+    # ---- 6f. the pose optimizer's kernel on the main path's inputs ----
+    r_popt, b_opt = pose_optim_phase(cam, seq_l, seq_r, smi)
+    emit("pose_optim", **r_popt)
+
     # ---- 7. the kernels' path against the plain path -------------------
     # lane 0's first frames through the port on the CPU (plain versions)
     cpu_state = frontend.init_state(cfg, device="cpu")
@@ -2539,7 +2713,8 @@ def main() -> None:
     # the step's wrappers run twice (the warm-up and the capture), its
     # graph is replayed once a frame
     per_step = {"fast_pack": cfg.orb_nlevels,
-                "extract_patches": cfg.orb_nlevels, "run_pack_multi": 1}
+                "extract_patches": cfg.orb_nlevels, "run_pack_multi": 1,
+                "pose_optim": 1}
     for k in wrappers:
         n = per_step.get(k, 0)
         require(r_cli["wrapper_launches"][k] == 2 * n
@@ -2631,11 +2806,12 @@ def main() -> None:
         "ba_graph": {"hamming_matrix_popc":
                      r_bag["b5_launches_per_window"]},
         "profiling_graph": r_prof["graph"]["launches"],
-        "ops_graph": r_ops["launches"],
+        "ops_graph": r_ops["launches"], "pose_optim": r_popt["launches"],
         **{f"profiling_graph_{k}": o["launches"]
            for k, o in r_prof["replays_traced"].items()}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
-              (b4, r_dense["per_direction"]), (b5, r_popc)]
+              (b4, r_dense["per_direction"]), (b5, r_popc),
+              (b_opt, r_popt)]
     # `launches`: the kernel's path's own run, counts zeroed just before;
     # `ops_graph_launches`: the ops_graph phase's graphs (no check reads it)
     table = [{k: row[k] for k in keys} for row in

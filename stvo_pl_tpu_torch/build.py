@@ -21,13 +21,15 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming", "stage_stamp")
+SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming", "stage_stamp",
+           "pose_optim")
 LIB = "libstvo_kernels.so"
 
 # -fmad=false: fast_pack needs IEEE float arithmetic in the reference
 # kernel's order, with no FMA contraction (its source also spells the
-# sensitive lines with __f*_rn intrinsics); patches, lsd_run_pack and
-# hamming and stage_stamp do no float math.
+# sensitive lines with __f*_rn intrinsics), and pose_optim the plain
+# optimizer's operations one by one; patches, lsd_run_pack and hamming and
+# stage_stamp do no float math.
 # -Xptxas=-v reports each kernel's registers and spills (`ptxas_report`).
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
@@ -43,6 +45,8 @@ SIGNATURES = {
     "stvo_lsd_run_pack": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "stvo_hamming_popc": [_P, _P, _P, _I, _I, _I, _P],
     "stvo_stage_stamp": [_P, _P, _I, _I, _I, _I, _P],
+    "stvo_pose_optim": [_P, _P],
+    "stvo_pose_optim_smem": [_I, _I, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -24,7 +24,7 @@ import torch
 
 from stvo_pl_tpu_torch.config import VOConfig
 from stvo_pl_tpu_torch.models.features import LineMatches, PointMatches
-from stvo_pl_tpu_torch.ops import linalg, robust, se3
+from stvo_pl_tpu_torch.ops import linalg, pose_optim, robust, se3
 
 SQRT_CHI2_995_3DOF = 2.7955  # sqrt(7.815), robust-scale clamp
 _BIG_ERR = 999999999.9
@@ -317,7 +317,21 @@ def optimize_pose(pm: PointMatches, lm: LineMatches, cam, cfg: VOConfig,
                   DT_prev, DT_prev_cov, err_prev):
     """The optimizePose state machine (:307-392), per lane.  Returns the
     committed pose increment (inverted + renormalized) and the updated
-    inlier masks."""
+    inlier masks.  CUDA tensors run it as one kernel
+    (`ops/pose_optim.py`), CPU tensors as `optimize_pose_plain`."""
+    if DT_prev.device.type == "cpu":
+        return optimize_pose_plain(pm, lm, cam, cfg, DT_prev, DT_prev_cov,
+                                   err_prev)
+    o = pose_optim.pose_optim(pm, lm, cam, cfg, DT_prev, DT_prev_cov,
+                              err_prev)
+    return (PoseEstimate(*o[:8]), pm._replace(inlier=o.p_inlier),
+            lm._replace(inlier=o.l_inlier))
+
+
+def optimize_pose_plain(pm: PointMatches, lm: LineMatches, cam,
+                        cfg: VOConfig, DT_prev, DT_prev_cov, err_prev):
+    """`optimize_pose` in tensor operations: every solve of both branches
+    unrolled, the branch a lane takes selected afterwards."""
     dtype = DT_prev.dtype
     I4 = _eye(4, DT_prev)
     Z6 = torch.zeros(DT_prev.shape[:-2] + (6, 6), dtype=dtype,

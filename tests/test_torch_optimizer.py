@@ -181,3 +181,26 @@ def test_solvers_match_jax(rng, solver):
         np.testing.assert_allclose(t_res.err[b].numpy(),
                                    np.asarray(j_res.err), rtol=1e-3)
         _close_scaled(t_res.cov[b].numpy(), np.asarray(j_res.cov))
+
+
+def test_optimize_pose_on_cpu_never_loads_the_kernels(rng, monkeypatch):
+    """CPU tensors take the plain path: the CUDA library is neither built
+    nor loaded, and the answer is `optimize_pose_plain`'s."""
+    from stvo_pl_tpu_torch import build
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the CPU path reached the CUDA kernels")
+
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build_all", refuse)
+    probs = [make_problem(rng) for _ in range(2)]
+    pm = _torch_batch(tfeat.PointMatches, [p for p, _ in probs])
+    lm = _torch_batch(tfeat.LineMatches, [l for _, l in probs])
+    prev = (torch.eye(4).expand(2, 4, 4), torch.eye(6).expand(2, 6, 6) * 1e-3,
+            torch.full((2,), 0.5))
+    cfg = TCfg()
+    out = topt.optimize_pose(pm, lm, TCAM, cfg, *prev)
+    ref = topt.optimize_pose_plain(pm, lm, TCAM, cfg, *prev)
+    for a, b in zip(out, ref):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert bool(out[0].good.all())
