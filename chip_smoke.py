@@ -307,18 +307,27 @@ def shared_fraction(a, b, tol: float = 0.5) -> float:
 
 def street_kernels_equal(root: str, cfg) -> dict:
     """B1, B2 and B3 against their plain versions (torch.equal) on the
-    inputs the CLI's step gives them for the street's first stereo pair:
-    [2, H, W] per pyramid level, one lane's two eyes, built as the main
-    path's kernel checks build theirs."""
+    inputs the CLI's step gives them for the street's first stereo pair
+    (`pair_kernels_equal`)."""
+    from stvo_pl_tpu_torch.utils.dataset import ImageSequence
+
+    dev = torch.device("cuda")
+    img_l, img_r = ImageSequence(root, nmax=1, device=dev).frame(0)
+    return pair_kernels_equal(img_l, img_r, cfg)
+
+
+def pair_kernels_equal(img_l, img_r, cfg, where: str = "cli_ba") -> dict:
+    """B1, B2 and B3 against their plain versions (torch.equal) on the
+    inputs a one-lane step gives them for a rectified stereo pair on the
+    card: [2, H, W] per pyramid level, the lane's two eyes, built as the
+    main path's kernel checks build theirs; returns the shapes checked."""
     from stvo_pl_tpu_torch.models import frame as frame_mod
     from stvo_pl_tpu_torch.ops import fast as fast_ops
     from stvo_pl_tpu_torch.ops import fast_kernel, lsd, lsd_kernel, orb
     from stvo_pl_tpu_torch.ops import patches
     from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
-    from stvo_pl_tpu_torch.utils.dataset import ImageSequence
 
     dev = torch.device("cuda")
-    img_l, img_r = ImageSequence(root, nmax=1, device=dev).frame(0)
     pair = torch.stack([img_l, img_r]).to(dev).contiguous()
     levels = pyramid_levels(pair, cfg.orb_nlevels, cfg.orb_scale_factor,
                             blur_sigma=0.6)
@@ -331,8 +340,8 @@ def street_kernels_equal(root: str, cfg) -> dict:
         k = fast_kernel.fast_pack(img, cfg.orb_edge_th)
         p = fast_kernel.fast_pack_plain(img, cfg.orb_edge_th)
         torch.cuda.synchronize()
-        require(torch.equal(k, p), f"cli_ba: B1 level {lv}: kernel != plain "
-                f"at {int((k != p).sum())} words")
+        require(torch.equal(k, p), f"{where}: B1 level {lv}: kernel != "
+                f"plain at {int((k != p).sum())} words")
         shapes["fast_pack"].append(list(img.shape))
         blur = gaussian_blur(img, 2.0, radius=3).contiguous()
         uv, _, _ = fast_ops.detect_keypoints(img, th, budgets[lv],
@@ -345,7 +354,7 @@ def street_kernels_equal(root: str, cfg) -> dict:
         k = patches.extract_patches(blur, y0, x0, P)
         p = patches.extract_patches_plain(blur, y0, x0, P)
         torch.cuda.synchronize()
-        require(torch.equal(k, p), f"cli_ba: B2 level {lv}: kernel != plain")
+        require(torch.equal(k, p), f"{where}: B2 level {lv}: kernel != plain")
         shapes["extract_patches"].append([N, H, W, y0.shape[1]])
     n_dirs = frame_mod._oct_dirs(cfg)
     steps = lsd.direction_steps(n_dirs)
@@ -356,7 +365,7 @@ def street_kernels_equal(root: str, cfg) -> dict:
     k = lsd_kernel.run_pack_multi(bits, steps)
     p = lsd_kernel.run_pack_multi_plain(bits, steps)
     torch.cuda.synchronize()
-    require(torch.equal(k, p), "cli_ba: B3: kernel != plain")
+    require(torch.equal(k, p), f"{where}: B3: kernel != plain")
     shapes["run_pack_multi"] = list(bits.shape)
     return shapes
 

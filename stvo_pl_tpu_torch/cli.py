@@ -198,12 +198,18 @@ def run(argv=None) -> CliRun:
     # program (frontend.compile_vo_step, as the JAX CLI drives its jitted
     # vo_step; with --device cpu it runs eagerly), which queues the pair's
     # host->device copy (non_blocking) into its static buffers ahead of
-    # its replay.  Each frame's telemetry is packed into one vector and
-    # copied back asynchronously, and consumed one frame later, so the
-    # host waits on an already-finished frame and makes one transfer per
-    # frame instead of one per field.
+    # its replay; a distorted rig's raw pair is rectified inside it.  Each
+    # frame's telemetry is packed into one vector and copied back
+    # asynchronously, and consumed one frame later, so the host waits on
+    # an already-finished frame and makes one transfer per frame instead
+    # of one per field.
     cuda = dev.type == "cuda"
-    step = frontend.compile_vo_step(cam, cfg, device=dev)
+    rectify = seq.rectification
+    step = frontend.compile_vo_step(cam, cfg, device=dev, rectify=rectify)
+    if rectify is not None:
+        print(f"[stvo] raw frames rectified inside the step; "
+              f"{100.0 * rectify.outside_share:.3f}% of rectified pixels "
+              f"sample outside the raw image")
 
     def _fetch(telem):
         v = _pack(telem)
@@ -216,6 +222,14 @@ def run(argv=None) -> CliRun:
         return host, done
 
     last_done = [time.perf_counter()]
+
+    def _shown(img):
+        """A left image of the scene page, rectified as the step sees it."""
+        if rectify is not None:
+            from stvo_pl_tpu_torch.ops.camera import rectify_remap
+            img = rectify_remap(img.to(torch.float32),
+                                torch.from_numpy(seq.calib.map_l))
+        return img.cpu().numpy()
 
     def _consume(entry):
         i, (host, done), prev_points, prev_lines, img_l = entry
@@ -239,7 +253,7 @@ def run(argv=None) -> CliRun:
                           npt=int(t_np["n_inliers_pt"]),
                           nls=int(t_np["n_inliers_ls"]), kf=is_kf))
         if args.scene and (i == 0 or (is_kf and len(scene_imgs) < 12)):
-            scene_imgs[i] = img_l.cpu().numpy()
+            scene_imgs[i] = _shown(img_l)
         if (args.scene and args.scene_every > 0 and i > 0
                 and i % args.scene_every == 0):
             from stvo_pl_tpu_torch.utils.scene_html import write_scene_html
@@ -255,7 +269,7 @@ def run(argv=None) -> CliRun:
                   f"({int(t_np['n_inliers_ls']):3d})"
                   + ("  [KF]" if i and is_kf else ""))
 
-    it = iter(seq.prefetch())
+    it = iter(seq.prefetch(raw=rectify is not None))
     cur = next(it, None)
     in_flight = None   # frame dispatched but telemetry not yet consumed:
     i = -1             # the sync always lands on an already-finished frame
@@ -329,7 +343,7 @@ def run(argv=None) -> CliRun:
         print(f"[stvo] plot -> {args.plot}")
     if args.scene and len(poses):
         from stvo_pl_tpu_torch.utils.scene_html import write_scene_html
-        scene_imgs[len(poses) - 1] = img_l.cpu().numpy()
+        scene_imgs[len(poses) - 1] = _shown(img_l)
         write_scene_html(args.scene,
                          poses_refined if poses_refined is not None
                          else poses,

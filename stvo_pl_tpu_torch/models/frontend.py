@@ -215,29 +215,35 @@ def keyframe_update(state: VOState, est: optimizer.PoseEstimate,
 # one full VO step
 # ---------------------------------------------------------------------------
 
-def _check_images(state: VOState, cam: cam_ops.StereoCamera, **images):
+def _check_images(state: VOState, hw: tuple, **images):
     dev = state.Tfw.device
     for name, im in images.items():
         if im.device != dev:
             raise ValueError(f"{name} is on {im.device}, the state on {dev}")
-        if im.shape != (state.Tfw.shape[0], cam.height, cam.width):
+        if im.shape != (state.Tfw.shape[0],) + tuple(hw):
             raise ValueError(f"{name} has shape {tuple(im.shape)}, expected "
-                             f"({state.Tfw.shape[0]}, {cam.height}, "
-                             f"{cam.width})")
+                             f"({state.Tfw.shape[0]}, {hw[0]}, {hw[1]})")
 
 
 def step_lanes(state: VOState, imgs_l: torch.Tensor, imgs_r: torch.Tensor,
                cam: cam_ops.StereoCamera, cfg: VOConfig,
-               per_direction: bool = False,
-               tp=None) -> tuple[VOState, StepTelemetry]:
+               per_direction: bool = False, tp=None,
+               rectify: cam_ops.RectifyTaps | None = None
+               ) -> tuple[VOState, StepTelemetry]:
     """Process B rectified stereo pairs [B, H, W] for B lanes of state.
     tp = (model-axis process group, n_shards) column-shards every matcher
     whose query set reaches cfg.tp_min_features (ops/matching.match_auto).
+    With `rectify` (ops/camera.rectify_taps of the rig) the pairs are the
+    raw images of a distorted rig, rectified first by `remap_taps`.
     Inside a captured program the step's stages are stamped (`begin`,
-    then `points`, `lines`, `f2f`, `optimizer`, `keyframe` where each
-    ends; utils/profiling.stamp)."""
-    _check_images(state, cam, imgs_l=imgs_l, imgs_r=imgs_r)
+    with `rectify` then `rectify`, then `points`, `lines`, `f2f`,
+    `optimizer`, `keyframe` where each ends; utils/profiling.stamp)."""
+    hw = (cam.height, cam.width) if rectify is None else rectify.raw_hw
+    _check_images(state, hw, imgs_l=imgs_l, imgs_r=imgs_r)
     stamp("begin")
+    if rectify is not None:
+        imgs_l, imgs_r = cam_ops.remap_taps(imgs_l, imgs_r, rectify)
+        stamp("rectify")
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_stereo_features(
         imgs_l.to(torch.float32), imgs_r.to(torch.float32), state.fast_th,
@@ -252,7 +258,7 @@ def step_lanes_rgbd(state: VOState, imgs: torch.Tensor, depths: torch.Tensor,
     """RGB-D variant of `step_lanes`: B intensity images and registered
     metric depth maps [B, H, W] (reference extractRGBDFeatures path,
     src/stereoFrame.cpp:667-818), with the same stage stamps."""
-    _check_images(state, cam, imgs=imgs, depths=depths)
+    _check_images(state, (cam.height, cam.width), imgs=imgs, depths=depths)
     stamp("begin")
     llength_th = cfg.min_line_length * min(cam.width, cam.height)
     feats = frame_mod.extract_rgbd_features(
@@ -324,10 +330,14 @@ def _map(fn, tree):
 
 def vo_step(state: VOState, img_l: torch.Tensor, img_r: torch.Tensor,
             cam: cam_ops.StereoCamera, cfg: VOConfig,
-            per_direction: bool = False) -> tuple[VOState, StepTelemetry]:
-    """One unbatched step: [H, W] stereo pair, state without lane axis."""
+            per_direction: bool = False,
+            rectify: cam_ops.RectifyTaps | None = None
+            ) -> tuple[VOState, StepTelemetry]:
+    """One unbatched step: [H, W] stereo pair, state without lane axis;
+    with `rectify`, the raw pair of a distorted rig (`step_lanes`)."""
     s, t = step_lanes(_map(lambda x: x[None], state), img_l[None],
-                      img_r[None], cam, cfg, per_direction=per_direction)
+                      img_r[None], cam, cfg, per_direction=per_direction,
+                      rectify=rectify)
     return _map(lambda x: x[0], s), _map(lambda x: x[0], t)
 
 
@@ -343,13 +353,24 @@ def vo_step_rgbd(state: VOState, img: torch.Tensor, depth: torch.Tensor,
 
 
 def compile_vo_step(cam: cam_ops.StereoCamera, cfg: VOConfig,
-                    per_direction: bool = False, device=None) -> Compiled:
+                    per_direction: bool = False, device=None,
+                    rectify: cam_ops.RectifyTaps | None = None
+                    ) -> Compiled:
     """`vo_step` as a captured program on `device` ("cuda" unless the
     caller asks for the CPU): `step(state, img_l, img_r) -> (state,
     telemetry)`, equal to `vo_step` bit for bit; the returned tensors
-    belong to the caller (parallel/compiled.py)."""
+    belong to the caller (parallel/compiled.py).  With `rectify`
+    (ops/camera.rectify_taps on `device`) the program takes the rig's raw
+    pair and rectifies it inside the graph, between the `begin` and
+    `rectify` stamps, before the step."""
+    if rectify is not None and tuple(rectify.out_hw) != (cam.height,
+                                                         cam.width):
+        raise ValueError(f"the rectification makes {rectify.out_hw} "
+                         f"images, the camera is {cam.height} x "
+                         f"{cam.width}")
     return compile_fn(vo_step, ("state", "img_l", "img_r"), device,
-                      cam=cam, cfg=cfg, per_direction=per_direction)
+                      cam=cam, cfg=cfg, per_direction=per_direction,
+                      rectify=rectify)
 
 
 def compile_vo_step_rgbd(cam: cam_ops.StereoCamera, cfg: VOConfig,

@@ -5,7 +5,12 @@ radial-tangential and fisheye / equidistant stereo rigs (:48-121).
 
 The rectification maps are computed once on the host in float64 (numpy,
 Bouguet's algorithm) and applied on the device as a float32 bilinear
-gather (`rectify_remap`, the cv::remap of :196-208).
+gather (`rectify_remap`, the cv::remap of :196-208).  `rectify_taps` turns
+a rig's two maps into a constant of the device, the four source taps of
+every rectified pixel and their weights, so that a frame's remap
+(`remap_taps`, both eyes at once) is one gather and a weighted sum, equal
+to `rectify_remap` bit for bit; the one-lane VO step can run it inside its
+captured program (models/frontend.compile_vo_step).
 """
 
 from __future__ import annotations
@@ -137,6 +142,72 @@ def build_rectify_maps(K_l: np.ndarray, d_l: np.ndarray, K_r: np.ndarray,
         vs = K[1, 1] * yd + K[1, 2]
         maps.append(np.stack([us, vs], axis=-1).astype(np.float32))
     return maps[0], maps[1], cam
+
+
+class RectifyTaps(NamedTuple):
+    """A rig's raw-to-rectified remap as a constant of the device
+    (`rectify_taps`).  Taps are ordered (y0, x0), (y0, x0 + 1), (y0 + 1,
+    x0), (y0 + 1, x0 + 1) around each rectified pixel's source point."""
+    idx: torch.Tensor       # int64 [2, 4 * Ho * Wo]: each eye's taps, flat
+    #                         raw-pixel indices clamped into the image
+    wx: torch.Tensor        # float32 [2, 4, Ho * Wo]: 1 - wx, wx, 1 - wx,
+    #                         wx; 0 for a tap outside the raw image
+    wy: torch.Tensor        # float32 [2, 2, Ho * Wo]: 1 - wy, wy
+    raw_hw: tuple           # (H, W) of the raw images
+    out_hw: tuple           # (Ho, Wo) of the rectified images
+    outside_share: float    # share of rectified pixels (both eyes) whose
+    #                         source lies outside the raw image
+
+
+def rectify_taps(map_l: np.ndarray, map_r: np.ndarray, raw_hw: tuple,
+                 device=None) -> RectifyTaps:
+    """The taps and weights of both eyes' maps ([Ho, Wo, 2] float32 source
+    (x, y), as `build_rectify_maps` returns them) for raw images of
+    `raw_hw`, on `device` ("cuda" unless the caller asks for the CPU).
+    The weights are `rectify_remap`'s, computed by the same float32
+    operations, with a tap outside the raw image weighted 0 where
+    `rectify_remap` reads 0 there."""
+    from stvo_pl_tpu_torch.device import resolve_device
+    H, W = (int(v) for v in raw_hw)
+    mp = torch.from_numpy(np.stack([map_l, map_r]).astype(np.float32)).to(
+        resolve_device(device))
+    Ho, Wo = mp.shape[1:3]
+    x, y = mp[..., 0].reshape(2, -1), mp[..., 1].reshape(2, -1)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = x - x0, y - y0
+    x0i, y0i = x0.to(torch.int64), y0.to(torch.int64)
+    idx, w = [], []
+    for dy, dx, wt in ((0, 0, 1 - wx), (0, 1, wx), (1, 0, 1 - wx),
+                       (1, 1, wx)):
+        yi, xi = y0i + dy, x0i + dx
+        inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        idx.append(torch.clamp(yi, 0, H - 1) * W + torch.clamp(xi, 0, W - 1))
+        w.append(torch.where(inb, wt, torch.zeros_like(wt)))
+    outside = (x < 0) | (x > W - 1) | (y < 0) | (y > H - 1)
+    return RectifyTaps(idx=torch.stack(idx, dim=1).reshape(2, -1),
+                       wx=torch.stack(w, dim=1),
+                       wy=torch.stack([1 - wy, wy], dim=1),
+                       raw_hw=(H, W), out_hw=(int(Ho), int(Wo)),
+                       outside_share=float(outside.float().mean()))
+
+
+def remap_taps(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+               taps: RectifyTaps) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both eyes' raw images [..., H, W] (on the taps' device) -> their
+    rectified float32 images [..., Ho, Wo]: one gather of the four taps,
+    then `top * (1 - wy) + bot * wy` with `top = s00 * (1 - wx) + s01 *
+    wx`, the float32 operations of `rectify_remap`, so on finite images
+    the two agree bit for bit."""
+    H, W = taps.raw_hw
+    lead = imgs_l.shape[:-2]
+    n = taps.wx.shape[-1]
+    flat = torch.stack([imgs_l, imgs_r], dim=-3).to(torch.float32).reshape(
+        lead + (2, H * W))
+    s = torch.gather(flat, -1, taps.idx.expand(lead + taps.idx.shape))
+    p = s.view(lead + (2, 2, 2, n)) * taps.wx.view(2, 2, 2, n)
+    q = (p[..., 0, :] + p[..., 1, :]) * taps.wy       # [..., eye, top/bot, n]
+    out = (q[..., 0, :] + q[..., 1, :]).view(lead + (2,) + taps.out_hw)
+    return out[..., 0, :, :].contiguous(), out[..., 1, :, :].contiguous()
 
 
 def rectify_remap(img: torch.Tensor, mp: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,10 @@ maps, else the decoded host images (in pinned memory when the sequence's
 device is a GPU, so the caller's copy to the device can be asynchronous).
 `ImageSequence.prefetch` yields the same pairs, decoded ahead on the
 native loader's threads (`native/loader.py`) and rectified on the device
-as `frame` rectifies them.
+as `frame` rectifies them; `prefetch(raw=True)` yields the decoded pairs
+before rectification, for a step that rectifies them itself with
+`ImageSequence.rectification` (ops/camera.rectify_taps: the maps as
+taps and weights on the device, built once).
 """
 
 from __future__ import annotations
@@ -154,10 +157,12 @@ class ImageSequence:
         self.paths_l = [keyed_l[i][1] for i in idx][:nmax]
         self.stamps = [keyed_l[i][0] for i in idx][:nmax]
         self.paths_r = [all_r[i] for i in idx][:nmax]
-        self._maps = None
+        self.rectification = None       # ops/camera.RectifyTaps or None
         if self.calib.map_l is not None:
-            self._maps = tuple(torch.from_numpy(np.ascontiguousarray(m)).to(
-                self.device) for m in (self.calib.map_l, self.calib.map_r))
+            cam = self.calib.cam
+            self.rectification = cam_ops.rectify_taps(
+                self.calib.map_l, self.calib.map_r, (cam.height, cam.width),
+                self.device)
 
     def __len__(self):
         return len(self.paths_l)
@@ -167,11 +172,11 @@ class ImageSequence:
         return img.pin_memory() if self.device.type == "cuda" else img
 
     def _rectify(self, img_l: torch.Tensor, img_r: torch.Tensor):
-        if self._maps is None:
+        if self.rectification is None:
             return img_l, img_r
-        return tuple(
-            cam_ops.rectify_remap(img.to(self.device, non_blocking=True), mp)
-            for img, mp in zip((img_l, img_r), self._maps))
+        return cam_ops.remap_taps(img_l.to(self.device, non_blocking=True),
+                                  img_r.to(self.device, non_blocking=True),
+                                  self.rectification)
 
     def frame(self, i: int):
         """Load (and rectify) one stereo pair: float32 [H, W] tensors."""
@@ -182,15 +187,16 @@ class ImageSequence:
         for i in range(len(self)):
             yield self.frame(i)
 
-    def prefetch(self, n_threads: int = 2):
+    def prefetch(self, n_threads: int = 2, raw: bool = False):
         """Iterate the pairs `__iter__` yields, bit for bit on 8-bit gray
         images, decoded ahead on the native loader's C++ threads (into
         pinned tensors on a GPU device) and rectified on the device as
-        `frame` rectifies them.  Falls back to `__iter__`, with a line on
-        stderr, only when the native library cannot be built; a frame that
-        does not decode or has the wrong size raises `IOError`.  RGB files
-        differ: the C++ decoder keeps the float luminance, PIL rounds it
-        (within 1.0)."""
+        `frame` rectifies them; with `raw`, the decoded pairs as they are,
+        not rectified.  Falls back to PIL, with a line on stderr, only
+        when the native library cannot be built; a frame that does not
+        decode or has the wrong size raises `IOError`.  RGB files differ:
+        the C++ decoder keeps the float luminance, PIL rounds it (within
+        1.0)."""
         from stvo_pl_tpu_torch.native import loader as native
         cam = self.calib.cam
         try:
@@ -201,9 +207,11 @@ class ImageSequence:
             sys.stderr.write(f"[Dataset] native loader unavailable, "
                              f"decoding with PIL: {e}\n")
             self.loader = "python"
-            yield from self
+            for a, b in zip(self.paths_l, self.paths_r):
+                pair = self._host(a), self._host(b)
+                yield pair if raw else self._rectify(*pair)
             return
         self.loader = "native"
         with ld:
             for img_l, img_r in ld:
-                yield self._rectify(img_l, img_r)
+                yield (img_l, img_r) if raw else self._rectify(img_l, img_r)
