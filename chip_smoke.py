@@ -13,7 +13,10 @@ cap, in all 16 directions for the all-direction one and in the 12 dense
 directions for the one-direction one, with caps 1, 8 and 256; Hamming
 with the edge words 0, 0xFFFFFFFF, 0x80000000 and 0x7FFFFFFF and pairs
 at distance 0 and 256), times them (B2 per pyramid level, B4 per
-direction and per pass), then drives the default point + line VO
+direction and per pass), holds ORB's descriptor kernel (orb_describe:
+csrc/orb_describe.cu) bit for bit to the bf16 test-bank product and to
+its plain twin on the fleet cells' patches (153,600 over 4 levels and
+256,000 at one) and times the three, then drives the default point + line VO
 step (parallel.batched.vo_step_batched, VOConfig()) over 8 distinct
 synthetic KITTI-sized sequences (1226x370, 26 frames) on the card and
 checks the trajectories.  Over the first 6 frames of the same sequences it
@@ -138,6 +141,17 @@ POSE_DT_TOL, POSE_ERR_TOL, POSE_COV_TOL, POSE_ITERS_TOL = 2e-4, 1e-3, 2e-3, 2
 # and normal-equation terms of a point and of a line
 POSE_OPS_PER_POINT = 139
 POSE_OPS_PER_LINE = 243
+# ORB's descriptor kernel per keypoint: the 33 x 33 float32 patch read
+# and 8 words, cos and sin written; integer operations: quantize (round,
+# two clamps) each pixel, 2 multiply-adds per moment and pixel of the
+# radius-15 disc (709 pixels), one comparison per test
+ORB_BYTES_PER_KEYPOINT = 33 * 33 * 4 + 8 * 4 + 2 * 4
+ORB_OPS_PER_KEYPOINT = 3 * 33 * 33 + 4 * 709 + 256
+# the orb_describe phase: the fleet cells' patches, 64 lanes x 2 eyes
+# from the 8 lanes' first 8 frames: kitti_pl (VOConfig(), 1,200 corners
+# over 4 levels, 153,600 patches) and kitti_points (2,000 at one level,
+# 256,000)
+ORB_FLEET_FRAMES = 8
 # B5's edge words, each in rows of its own: 0, 0xFFFFFFFF, 0x80000000 and
 # 0x7FFFFFFF
 HAMMING_EDGE_WORDS = (0, -1, -2 ** 31, 2 ** 31 - 1)
@@ -380,10 +394,11 @@ def eager_cli(argv: list):
     from stvo_pl_tpu_torch.models import frontend
     from stvo_pl_tpu_torch.parallel import window
 
-    def step(cam, cfg, per_direction=False, device=None):
+    def step(cam, cfg, per_direction=False, device=None, rectify=None):
         def run(s, a, b):
             return frontend.vo_step(s, a.to(device, non_blocking=True),
-                                    b.to(device, non_blocking=True), cam, cfg)
+                                    b.to(device, non_blocking=True), cam, cfg,
+                                    rectify=rectify)
         # no program, so no stage ring: the CLI prints no stage line
         run.stages = lambda: ([], torch.zeros((0, 0), dtype=torch.int64))
         return run
@@ -756,6 +771,7 @@ def edlines_phase(drive, check, capture, seq_l, depth0, cam,
         name = f"vo_edlines scale {scale}"
         check(name, r, {"fast_pack": nf * cfg_ed.orb_nlevels,
                         "extract_patches": nf * cfg_ed.orb_nlevels,
+                        "orb_describe": nf * cfg_ed.orb_nlevels,
                         "pose_optim": nf})
         g = capture(cfg_ed)
         out_g = {}
@@ -1017,6 +1033,7 @@ def sharded_programs(root: str, cam, cfg, seq_l, seq_r, wrappers: dict,
                 "step")
     expected = {"fast_pack": nf * cfg.orb_nlevels,
                 "extract_patches": nf * cfg.orb_nlevels,
+                "orb_describe": nf * cfg.orb_nlevels,
                 "run_pack_multi": nf, "pose_optim": nf}
     for name, n in launches.items():
         for k in wrappers:
@@ -1198,6 +1215,7 @@ def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
     n_steps = 3 * CHECKPOINT_FRAMES
     expected = {"fast_pack": n_steps * cfg.orb_nlevels,
                 "extract_patches": n_steps * cfg.orb_nlevels,
+                "orb_describe": n_steps * cfg.orb_nlevels,
                 "run_pack_multi": n_steps, "pose_optim": n_steps}
     for k in wrappers:
         require(launches[k] == expected.get(k, 0), f"checkpoint: {k} "
@@ -1228,14 +1246,15 @@ def checkpoint_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
                 seconds=time.perf_counter() - t_phase, card=smi)
 
 
-# B1, B2 and B3's CUDA kernels and the pose optimizer's (csrc/), each
-# launched once per call of its wrapper
+# B1, B2 and B3's CUDA kernels, the pose optimizer's and ORB's descriptor
+# kernel (csrc/), each launched once per call of its wrapper
 TRACED_KERNELS = {"fast_pack_kernel": "fast_pack",
                   "extract_kernel": "extract_patches",
                   "run_planes_kernel": "run_pack_multi",
                   "chain_pack_kernel": "run_pack_multi",
-                  "pose_optim_kernel": "pose_optim"}
-# every CUDA kernel of the six wrappers: each wrapper's launch runs each
+                  "pose_optim_kernel": "pose_optim",
+                  "orb_describe_kernel": "orb_describe"}
+# every CUDA kernel of the seven wrappers: each wrapper's launch runs each
 # of its kernels once
 CUDA_KERNELS = {**TRACED_KERNELS, "run_plane_kernel": "run_pack",
                 "start_pack_kernel": "run_pack",
@@ -1581,8 +1600,9 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
                     smi: str) -> dict:
     """One default step on the 8 lanes (after 2 unprofiled ones) inside
     utils.profiling.device_trace: summarize_trace's top 15, the device
-    total and the step's wall time; every CUDA kernel of B1, B2 and B3 in
-    the full summary as often as its wrapper counted its launches.  Then
+    total and the step's wall time; every CUDA kernel of B1, B2, B3, the
+    optimizer and ORB's descriptor kernel (TRACED_KERNELS) in the full
+    summary as often as its wrapper counted its launches.  Then
     the compiled step (its graph captured by the first of 2 unprofiled
     calls): GRAPH_TRACED_REPLAYS replays in one trace, with their device
     total and wall time, and B1-B3's kernels in it as often as the
@@ -1633,7 +1653,8 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
         return counted
 
     require(all(launches[w] > 0 for w in TRACED_KERNELS.values()),
-            f"profiling: a kernel of B1-B3 or the optimizer did not run: "
+            f"profiling: a kernel of B1-B3, the optimizer or ORB's "
+            f"descriptor kernel did not run: "
             f"{launches}")
     counted = kernels_in(rows, launches, "eager step's")
     trace = profiling.newest_trace(logdir)
@@ -1709,6 +1730,106 @@ def profiling_phase(cam, cfg, seq_l, seq_r, wrappers: dict,
                 replays_traced=others,
                 trace_bytes=os.path.getsize(trace), parse_seconds=parse_s,
                 seconds=time.perf_counter() - t_phase, card=smi)
+
+
+def ptxas_lines(kernel: str) -> list:
+    """The build's ptxas report for one kernel: its entry line and the
+    lines after it up to the next entry (registers, spills)."""
+    from stvo_pl_tpu_torch import build
+    out, mine = [], False
+    for line in build.ptxas_report:
+        if "Compiling entry function" in line:
+            mine = f"{len(kernel)}{kernel}" in line
+        if mine:
+            out.append(line)
+    return out
+
+
+def orb_describe_phase(seq_l, seq_r, smi: str) -> tuple[dict, dict]:
+    """ORB's descriptor kernel (ops/orb.py orb_describe,
+    csrc/orb_describe.cu) at the fleet cells' shapes: the patches the VO
+    gathers from 128 images (the 8 lanes' first ORB_FLEET_FRAMES frames,
+    both eyes) under kitti_pl (VOConfig(): 1,200 corners over 4 levels)
+    and kitti_points (2,000 at one level).  Per pyramid level (one launch
+    each): desc, cos and sin of the kernel, its plain twin
+    (orient_describe_plain) and the bf16 test-bank product
+    (orient_describe_product) `torch.equal`; ms of each (the product's
+    as library_ms) beside the kernel's bound by bytes.  Returns (the
+    phase's numbers, the kernel table's row for kitti_pl)."""
+    from stvo_pl_tpu_torch.config import VOConfig
+    from stvo_pl_tpu_torch.models import frame as frame_mod
+    from stvo_pl_tpu_torch.ops import fast as fast_ops
+    from stvo_pl_tpu_torch.ops import orb
+    from stvo_pl_tpu_torch.ops.image import gaussian_blur, pyramid_levels
+
+    t_phase = time.perf_counter()
+    dev = seq_l.device
+    imgs = torch.cat([seq_l[:, :ORB_FLEET_FRAMES],
+                      seq_r[:, :ORB_FLEET_FRAMES]]).flatten(0, 1).contiguous()
+    configs = {"kitti_pl": VOConfig(),
+               "kitti_points": VOConfig(orb_nfeatures=2000, orb_nlevels=1)}
+    rows = {}
+    orb.orb_describe.launches = 0
+    for name, run_cfg in configs.items():
+        th = torch.full((imgs.shape[0],), float(run_cfg.orb_fast_th),
+                        device=dev)
+        budgets = frame_mod._per_level_budgets(run_cfg)
+        levels, tot = [], dict(K=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                               bound_ms=0.0)
+        for lv, img in enumerate(pyramid_levels(
+                imgs, run_cfg.orb_nlevels, run_cfg.orb_scale_factor,
+                blur_sigma=0.6)):
+            uv, _, _ = fast_ops.detect_keypoints(
+                img.contiguous(), th, budgets[lv], edge=run_cfg.orb_edge_th,
+                cell=4, score_type=run_cfg.orb_score)
+            p = orb.gather_patches(gaussian_blur(img, 2.0, radius=3), uv)
+            del uv
+            k = orb.orb_describe(p, run_cfg.orb_patch_size)
+            for what, fn in (("product", orb.orient_describe_product),
+                             ("plain", orb.orient_describe_plain)):
+                ref = fn(p, run_cfg.orb_patch_size)
+                torch.cuda.synchronize()
+                for f, a, b in zip(("desc", "cos", "sin"), k, ref):
+                    require(torch.equal(a, b), f"orb_describe {name} level "
+                            f"{lv}: {f} differs from the {what} path at "
+                            f"{int((a != b).sum())} values")
+                del ref
+            n_bins = len(set(orb._bin_index(k[1], k[2]).flatten().tolist()))
+            K = p.shape[0] * p.shape[1]
+            ms = time_ms(lambda: orb.orb_describe(p, run_cfg.orb_patch_size),
+                         20)
+            plain = time_ms(lambda: orb.orient_describe_plain(
+                p, run_cfg.orb_patch_size), 3)
+            lib = time_ms(lambda: orb.orient_describe_product(
+                p, run_cfg.orb_patch_size), 5)
+            bnd, by = bound_ms(K * ORB_BYTES_PER_KEYPOINT,
+                               K * ORB_OPS_PER_KEYPOINT)
+            require(by == "bytes", f"orb_describe {name}: bound by {by}")
+            levels.append(dict(level=lv, shape=list(p.shape), K=K,
+                               bins_seen=n_bins, ms=ms, plain_ms=plain,
+                               library_ms=lib, bound_us=bnd * 1e3,
+                               over_bound=ms / bnd))
+            for key, v in (("K", K), ("ms", ms), ("plain_ms", plain),
+                           ("library_ms", lib), ("bound_ms", bnd)):
+                tot[key] += v
+            del p, k
+            torch.cuda.empty_cache()
+        rows[name] = dict(levels=levels, **tot,
+                          over_bound=tot["ms"] / tot["bound_ms"])
+    launches = orb.orb_describe.launches
+    out = dict(images=list(imgs.shape), configs=rows, equal_to_product=True,
+               equal_to_plain=True, launches=launches,
+               ptxas=ptxas_lines("orb_describe_kernel"),
+               seconds=time.perf_counter() - t_phase, card=smi)
+    row = rows["kitti_pl"]
+    b_orb = dict(name="orb_describe", route="cuda",
+                 source="stvo_pl_tpu_torch/csrc/orb_describe.cu",
+                 replaces="none (XLA's test-bank product in "
+                          "stvo_pl_tpu/ops/orb.py orient_describe)",
+                 max_abs_err=0.0, ms=row["ms"], plain_ms=row["plain_ms"],
+                 bound_ms=row["bound_ms"], bound_by="bytes",
+                 library_ms=row["library_ms"])
+    return out, b_orb
 
 
 def pose_optim_phase(cam, seq_l, seq_r, smi: str) -> tuple[dict, dict]:
@@ -2329,13 +2450,18 @@ def main() -> None:
               library_ms=per_step("library_ms"))
     del b5_shapes
 
+    # ---- 5d. ORB's descriptor kernel at the fleet cells' shapes --------
+    r_orb, b_orb = orb_describe_phase(seq_l, seq_r, smi)
+    emit("orb_describe", **r_orb)
+
     # ---- 6. VO: the batched step on 8 lanes ----------------------------
     wrappers = {"fast_pack": fast_kernel.fast_pack,
                 "extract_patches": patches.extract_patches,
                 "run_pack_multi": lsd_kernel.run_pack_multi,
                 "run_pack": lsd_kernel.run_pack,
                 "hamming_matrix_popc": hamming.hamming_matrix_popc,
-                "pose_optim": pose_optim.pose_optim}
+                "pose_optim": pose_optim.pose_optim,
+                "orb_describe": orb.orb_describe}
     line_log = []       # (descriptors, validity) of each step's left lines
 
     def drive(run_cfg, frames, warmup, per_direction=False, log=None,
@@ -2447,6 +2573,7 @@ def main() -> None:
     check("vo_points_only", r_pts,
           {"fast_pack": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
            "extract_patches": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
+           "orb_describe": POINTS_ONLY_FRAMES * cfg.orb_nlevels,
            "run_pack_multi": 0, "pose_optim": POINTS_ONLY_FRAMES})
 
     # the main path: VOConfig() with every default, points + lines
@@ -2456,6 +2583,7 @@ def main() -> None:
     emit("vo", **r_main, points_only_ms_per_step=r_pts["ms_per_step"])
     check("vo", r_main, {"fast_pack": n_frames * cfg.orb_nlevels,
                          "extract_patches": n_frames * cfg.orb_nlevels,
+                         "orb_describe": n_frames * cfg.orb_nlevels,
                          "run_pack_multi": n_frames,
                          "pose_optim": n_frames})
     require(min(r_main["inliers_ls_lanes"]) > 0,
@@ -2497,6 +2625,7 @@ def main() -> None:
     nf = POINTS_ONLY_FRAMES
     points_launches = {"fast_pack": nf * cfg.orb_nlevels,
                        "extract_patches": nf * cfg.orb_nlevels,
+                       "orb_describe": nf * cfg.orb_nlevels,
                        "pose_optim": nf}
     cfg_dense = VOConfig(lsd_octaves=1)
     r_dense, dense_runs = {}, {}
@@ -2722,7 +2851,8 @@ def main() -> None:
     # the step's wrappers run twice (the warm-up and the capture), its
     # graph is replayed once a frame
     per_step = {"fast_pack": cfg.orb_nlevels,
-                "extract_patches": cfg.orb_nlevels, "run_pack_multi": 1,
+                "extract_patches": cfg.orb_nlevels,
+                "orb_describe": cfg.orb_nlevels, "run_pack_multi": 1,
                 "pose_optim": 1}
     for k in wrappers:
         n = per_step.get(k, 0)
@@ -2816,11 +2946,12 @@ def main() -> None:
                      r_bag["b5_launches_per_window"]},
         "profiling_graph": r_prof["graph"]["launches"],
         "ops_graph": r_ops["launches"], "pose_optim": r_popt["launches"],
+        "orb_describe": {"orb_describe": r_orb["launches"]},
         **{f"profiling_graph_{k}": o["launches"]
            for k, o in r_prof["replays_traced"].items()}}
     ran_in = [(b1, r_main), (b2, r_main), (b3, r_main),
               (b4, r_dense["per_direction"]), (b5, r_popc),
-              (b_opt, r_popt)]
+              (b_opt, r_popt), (b_orb, r_main)]
     # `launches`: the kernel's path's own run, counts zeroed just before;
     # `ops_graph_launches`: the ops_graph phase's graphs (no check reads it)
     table = [{k: row[k] for k in keys} for row in

@@ -22,14 +22,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("fast_pack", "patches", "lsd_run_pack", "hamming", "stage_stamp",
-           "pose_optim")
+           "pose_optim", "orb_describe")
 LIB = "libstvo_kernels.so"
 
 # -fmad=false: fast_pack needs IEEE float arithmetic in the reference
 # kernel's order, with no FMA contraction (its source also spells the
-# sensitive lines with __f*_rn intrinsics), and pose_optim the plain
-# optimizer's operations one by one; patches, lsd_run_pack and hamming and
-# stage_stamp do no float math.
+# sensitive lines with __f*_rn intrinsics), pose_optim the plain
+# optimizer's operations one by one, and orb_describe the plain
+# orientation's; patches, lsd_run_pack and hamming and stage_stamp do no
+# float math.
 # -Xptxas=-v reports each kernel's registers and spills (`ptxas_report`).
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas=-v"]
@@ -47,6 +48,7 @@ SIGNATURES = {
     "stvo_stage_stamp": [_P, _P, _I, _I, _I, _I, _P],
     "stvo_pose_optim": [_P, _P],
     "stvo_pose_optim_smem": [_I, _I, _P, _P],
+    "stvo_orb_describe": [_P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -3,16 +3,27 @@ stvo_pl_tpu/ops/orb.py.
 
 Patches are gathered once per keypoint by the patch kernel
 (ops/patches.py), quantized to the uint8 grid, oriented by the intensity
-centroid, and described by ONE product against a static orientation-binned
-+/-1 test matrix.  The tables (`_make_pattern`, `_binned_test_matrix`,
+centroid, and described by rotated-BRIEF tests under the orientation
+quantized to 30 bins.  The tables (`_make_pattern`, `_binned_test_matrix`,
 `_circular_mask`, the WTA sampling matrix) are numpy copies of the
 reference's builders; tests assert equal arrays.
 
+`orient_describe` takes one of two formulations by the tensor's device:
+
+  * CPU tensors: ONE product against the static orientation-binned +/-1
+    test matrix, then each keypoint's own bin's 256 columns
+    (`orient_describe_product`), as the reference computes it.
+  * CUDA tensors: the kernel `csrc/orb_describe.cu` (`orb_describe`),
+    which evaluates only the keypoint's 256 tests, q[i1] > q[i0], from the
+    [30, 256, 2] table of test pixels (`_test_index_table`).  Its plain
+    twin is `orient_describe_plain`.
+
 Descriptors are [..., 8] int32 words holding the bits of the reference's
-uint32 words.  The test-bank product is exact on every device: the
-quantized patch values (<= 255) and the +/-1 entries are exact in bf16 and
-each output sums two of them, so bf16 operands on the GPU and float32 on
-the CPU give the same integers.
+uint32 words.  Both formulations give the same bits: the test-bank
+product is exact on every device (the quantized patch values (<= 255) and
+the +/-1 entries are exact in bf16 and each output sums two of them), so
+its output is q[i1] - q[i0].  `describe_wta` (WTA_K = 3/4) keeps the
+product.
 """
 
 from __future__ import annotations
@@ -22,6 +33,7 @@ import functools
 import numpy as np
 import torch
 
+from stvo_pl_tpu_torch import build
 from stvo_pl_tpu_torch.device import device_cache
 from stvo_pl_tpu_torch.ops.patches import extract_patches
 from stvo_pl_tpu_torch.parallel.compiled import Compiled, compile_fn
@@ -61,6 +73,29 @@ _ORI_Y = ((np.mgrid[0:PATCH, 0:PATCH][0] - PATCH_R)
           * _ORI_MASK).astype(np.float32)
 
 
+def _rotated_index(pattern: np.ndarray, b: int) -> np.ndarray:
+    """Flat patch pixel indices [...] of the points `pattern` [..., 2]
+    (dx, dy) rotated to orientation bin b, rounded and clipped inside the
+    patch."""
+    th = 2.0 * np.pi * b / N_ORI_BINS
+    c, s = np.cos(th), np.sin(th)
+    px = pattern[..., 0]
+    py = pattern[..., 1]
+    rx = np.clip(np.round(c * px - s * py + PATCH_R), 0, PATCH - 1)
+    ry = np.clip(np.round(s * px + c * py + PATCH_R), 0, PATCH - 1)
+    return (ry * PATCH + rx).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _test_index_table(patch_size: int = 31) -> np.ndarray:
+    """[N_ORI_BINS, 256, 2] int16 flat pixel indices (i0, i1) of each
+    bit's two test points under each orientation bin: bit c of bin b is
+    q[i1] > q[i0]."""
+    pattern = _make_pattern(patch_size)
+    return np.stack([_rotated_index(pattern, b)
+                     for b in range(N_ORI_BINS)]).astype(np.int16)
+
+
 @functools.lru_cache(maxsize=8)
 def _binned_test_matrix(patch_size: int = 31) -> np.ndarray:
     """[P*P, N_ORI_BINS * 256] +/-1 difference matrix: column (b, c) has +1
@@ -68,14 +103,8 @@ def _binned_test_matrix(patch_size: int = 31) -> np.ndarray:
     c under orientation bin b."""
     D = np.zeros((PATCH * PATCH, N_ORI_BINS * N_BITS), np.float32)
     pattern = _make_pattern(patch_size)
-    px = pattern[..., 0]
-    py = pattern[..., 1]
     for b in range(N_ORI_BINS):
-        th = 2.0 * np.pi * b / N_ORI_BINS
-        c, s = np.cos(th), np.sin(th)
-        rx = np.clip(np.round(c * px - s * py + PATCH_R), 0, PATCH - 1)
-        ry = np.clip(np.round(s * px + c * py + PATCH_R), 0, PATCH - 1)
-        idx = (ry * PATCH + rx).astype(np.int32)
+        idx = _rotated_index(pattern, b)
         cols = b * N_BITS + np.arange(N_BITS)
         np.add.at(D, (idx[:, 1], cols), 1.0)
         np.add.at(D, (idx[:, 0], cols), -1.0)
@@ -100,14 +129,8 @@ def _binned_sample_matrix(patch_size: int, wta_k: int) -> np.ndarray:
     """[P*P, N_ORI_BINS * 128 * wta_k] one-hot sampling matrix."""
     S = np.zeros((PATCH * PATCH, N_ORI_BINS * N_CELLS * wta_k), np.float32)
     pattern = _make_wta_pattern(patch_size, wta_k)
-    px = pattern[..., 0]
-    py = pattern[..., 1]
     for b in range(N_ORI_BINS):
-        th = 2.0 * np.pi * b / N_ORI_BINS
-        c, s = np.cos(th), np.sin(th)
-        rx = np.clip(np.round(c * px - s * py + PATCH_R), 0, PATCH - 1)
-        ry = np.clip(np.round(s * px + c * py + PATCH_R), 0, PATCH - 1)
-        idx = (ry * PATCH + rx).astype(np.int32)
+        idx = _rotated_index(pattern, b)
         cols = (b * N_CELLS * wta_k
                 + np.arange(N_CELLS)[:, None] * wta_k
                 + np.arange(wta_k)[None, :])
@@ -126,6 +149,12 @@ def _device_table(kind: str, patch_size: int, wta_k: int,
          else _binned_sample_matrix(patch_size, wta_k))
     return torch.from_numpy(M).to(device=device,
                                   dtype=_matmul_dtype(device))
+
+
+@device_cache
+def _device_index_table(patch_size: int,
+                        device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_test_index_table(patch_size)).to(device)
 
 
 @device_cache
@@ -201,13 +230,74 @@ def describe(patches: torch.Tensor, cos_t: torch.Tensor,
     return _pack_words(bits, 1).reshape(lead + (8,))
 
 
+def _quantize(patches: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(patches.to(torch.float32)), 0.0, 255.0)
+
+
+def orient_describe_product(patches: torch.Tensor, patch_size: int = 31):
+    """`orient_describe` by the test-bank product (its path on the CPU)."""
+    q = _quantize(patches)
+    cos_t, sin_t = orientation(q)
+    return describe(q, cos_t, sin_t, patch_size=patch_size), cos_t, sin_t
+
+
+def orient_describe_plain(patches: torch.Tensor, patch_size: int = 31):
+    """`orient_describe` as the kernel computes it, in plain PyTorch (the
+    kernel's twin): each keypoint's 256 tests q[i1] > q[i0] under its
+    orientation bin, gathered from the index table and packed, bit for bit
+    `orient_describe_product`."""
+    lead = patches.shape[:-2]
+    q = _quantize(patches)
+    cos_t, sin_t = orientation(q)
+    flat = q.reshape(-1, PATCH * PATCH)
+    table = _device_index_table(patch_size, flat.device).long()
+    pairs = table[_bin_index(cos_t, sin_t).reshape(-1)]     # [K, 256, 2]
+    bits = (torch.gather(flat, 1, pairs[..., 1])
+            > torch.gather(flat, 1, pairs[..., 0])).reshape(-1, 8, 32)
+    return _pack_words(bits, 1).reshape(lead + (8,)), cos_t, sin_t
+
+
+def orb_describe(patches: torch.Tensor, patch_size: int = 31):
+    """The kernel `csrc/orb_describe.cu` on CUDA patches [..., 33, 33]:
+    (desc [..., 8] int32, cos [...], sin [...]), bit for bit
+    `orient_describe_product`.  Counted in `orb_describe.launches`."""
+    if patches.ndim < 2 or tuple(patches.shape[-2:]) != (PATCH, PATCH):
+        raise ValueError(f"orb_describe wants [..., {PATCH}, {PATCH}] "
+                         f"patches, got {tuple(patches.shape)}")
+    if patches.device.type != "cuda":
+        raise ValueError(f"orb_describe: unsupported device {patches.device}")
+    lead = patches.shape[:-2]
+    flat = patches.to(torch.float32).reshape(-1, PATCH, PATCH).contiguous()
+    K = flat.shape[0]
+    dev = flat.device
+    desc = torch.empty((K, 8), dtype=torch.int32, device=dev)
+    cos_t = torch.empty((K,), dtype=torch.float32, device=dev)
+    sin_t = torch.empty((K,), dtype=torch.float32, device=dev)
+    if K:
+        table = _device_index_table(patch_size, dev)
+        lib = build.library()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.stvo_orb_describe(flat.data_ptr(), table.data_ptr(),
+                                       desc.data_ptr(), cos_t.data_ptr(),
+                                       sin_t.data_ptr(), K, stream)
+        build.check(rc, "orb_describe")
+        orb_describe.launches += 1
+    return desc.reshape(lead + (8,)), cos_t.reshape(lead), sin_t.reshape(lead)
+
+
+orb_describe.launches = 0
+
+
 def orient_describe(patches: torch.Tensor, patch_size: int = 31):
     """Quantized orientation + rotated BRIEF: [..., P, P] ->
     (desc [..., 8] int32, cos [...], sin [...]).  Patches are snapped to
-    the 0..255 grid first, so near-tie tests are deterministic."""
-    q = torch.clamp(torch.round(patches.to(torch.float32)), 0.0, 255.0)
-    cos_t, sin_t = orientation(q)
-    return describe(q, cos_t, sin_t, patch_size=patch_size), cos_t, sin_t
+    the 0..255 grid first, so near-tie tests are deterministic.  CUDA
+    tensors launch the kernel (`orb_describe`), CPU tensors take the
+    product (`orient_describe_product`): the same bits."""
+    if patches.device.type == "cuda":
+        return orb_describe(patches, patch_size=patch_size)
+    return orient_describe_product(patches, patch_size=patch_size)
 
 
 def orient_and_describe(img: torch.Tensor, img_blur: torch.Tensor,
@@ -231,7 +321,7 @@ def compile_orient_and_describe(patch_size: int = 31,
     """`orient_and_describe` as a captured program on `device` ("cuda"
     unless the caller asks for the CPU): `prog(img, img_blur, uv) ->
     (desc, cos, sin)`, equal to the eager call bit for bit; on the card
-    its graph holds the patch gather kernel."""
+    its graph holds the patch gather and the descriptor kernels."""
     return compile_fn(orient_and_describe, ("img", "img_blur", "uv"),
                       device, patch_size=patch_size)
 

@@ -6,7 +6,14 @@ mode, in the 33x33 float32 mode and in the (1, PX) row mode with uint32
 input.  The descriptor tables are equal arrays; identical patches give
 identical descriptor bits (also through `orient_and_describe`, the gather
 and the description in one call); the photometric disparity shift
-agrees."""
+agrees.
+
+The descriptor kernel's formulation (csrc/orb_describe.cu, which runs
+only on a card: tests/test_torch_orb_cuda.py): its [30, 256, 2] table of
+test pixels reproduces the test matrix, and its plain twin
+`orient_describe_plain` (the tests as pixel comparisons) equals the
+product path bit for bit on patches at every orientation bin's
+boundaries (tests/orb_cases.py)."""
 
 import functools
 
@@ -20,6 +27,8 @@ from stvo_pl_tpu.ops import subpix as jsub
 from stvo_pl_tpu_torch.ops import orb as torb
 from stvo_pl_tpu_torch.ops import patches as tpat
 from stvo_pl_tpu_torch.ops import subpix as tsub
+
+from orb_cases import boundary_patches, moments
 
 torch.set_num_threads(1)
 
@@ -165,3 +174,73 @@ def test_disparity_shift_matches(rng):
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
     # SSD sums of 121 products in another order: 1e-4 px
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), atol=1e-4)
+
+
+@pytest.mark.parametrize("patch_size", [31, 15])
+def test_index_table_reproduces_test_matrix(patch_size):
+    """+1 at i1 and -1 at i0 of every (bin, bit) column, and a zero column
+    where the two test points coincide."""
+    tab = torb._test_index_table(patch_size)
+    assert tab.shape == (torb.N_ORI_BINS, torb.N_BITS, 2)
+    assert tab.dtype == np.int16
+    ref = torb._binned_test_matrix(patch_size)
+    D = np.zeros_like(ref)
+    for b in range(torb.N_ORI_BINS):
+        i0, i1 = tab[b, :, 0], tab[b, :, 1]
+        cols = (b * torb.N_BITS + np.arange(torb.N_BITS))[i0 != i1]
+        D[i1[i0 != i1], cols] = 1.0
+        D[i0[i0 != i1], cols] = -1.0
+    np.testing.assert_array_equal(D, ref)
+
+
+def test_boundary_patches_cover_every_bin_boundary():
+    """The shared patch set: exact moments within 1e-5 rad on both sides
+    of each of the 30 bin boundaries, zero moments, saturated values."""
+    x, bins = boundary_patches()
+    q = np.clip(np.round(x), 0, 255)
+    m10, m01 = moments(q)
+    u = np.arctan2(m01, m10) / (2 * np.pi / torb.N_ORI_BINS)
+    for b in range(torb.N_ORI_BINS):
+        off = (u - (b + 0.5) + torb.N_ORI_BINS / 2) % torb.N_ORI_BINS \
+            - torb.N_ORI_BINS / 2
+        rad = off * 2 * np.pi / torb.N_ORI_BINS
+        assert ((rad > 0) & (rad < 1e-5)).any(), b
+        assert ((rad < 0) & (rad > -1e-5)).any(), b
+    assert ((m10 == 0) & (m01 == 0)).sum() >= 4
+    assert (x < -0.5).any() and (x > 255.5).any()
+    assert set(bins[bins >= 0].tolist()) == set(range(torb.N_ORI_BINS))
+
+
+@pytest.mark.parametrize("patch_size", [31, 15])
+def test_test_gather_equals_product_bit_for_bit(patch_size):
+    """The kernel's formulation in plain PyTorch (`orient_describe_plain`)
+    against the product path on the boundary set: the same words, cos and
+    sin, every bin as the exact moments put it."""
+    x, bins = boundary_patches()
+    xt = torch.from_numpy(x)
+    dp, cp, sp = torb.orient_describe_product(xt, patch_size)
+    dg, cg, sg = torb.orient_describe_plain(xt, patch_size)
+    assert torch.equal(dg, dp) and torch.equal(cg, cp) and torch.equal(sg, sp)
+    got = torb._bin_index(cp, sp).numpy()
+    np.testing.assert_array_equal(got[bins >= 0], bins[bins >= 0])
+    assert set(got.tolist()) == set(range(torb.N_ORI_BINS))
+    # leading dims keep the same bits
+    dg2, _, _ = torb.orient_describe_plain(xt[:400].reshape(4, 100, 33, 33),
+                                           patch_size)
+    assert torch.equal(dg2.reshape(-1, 8), dg[:400])
+
+
+def test_orient_describe_takes_product_on_cpu():
+    """CPU tensors take the product path, never the kernel, whose wrapper
+    refuses them."""
+    x, _ = boundary_patches(n_random=16)
+    xt = torch.from_numpy(x)
+    before = torb.orb_describe.launches
+    for a, b in zip(torb.orient_describe(xt),
+                    torb.orient_describe_product(xt)):
+        assert torch.equal(a, b)
+    assert torb.orb_describe.launches == before
+    with pytest.raises(ValueError, match="device"):
+        torb.orb_describe(xt)
+    with pytest.raises(ValueError, match="33"):
+        torb.orb_describe(xt[:, :31, :31])
